@@ -1,8 +1,9 @@
 // Native host-side runtime for hpccg_tpu (the counterpart of the reference's
 // C++ host tier: read_HPC_row.cpp's parser and generate_matrix.cpp's
 // assembly loop). Compiled to libhpccg_host.so and loaded via ctypes
-// (hpccg_tpu/native.py). The TPU compute path stays JAX/Pallas; this library
-// covers the host-bound work: file tokenization, ELL assembly, serialization.
+// (hpccg_tpu/native.py). The device compute path stays JAX; this library
+// covers the host-bound work: file tokenization, ELL assembly, serialization,
+// RCM reordering.
 //
 // Written from the format/problem *specification* in SURVEY.md — not a copy
 // of the reference sources.
@@ -69,8 +70,8 @@ int64_t hpccg_tokenize_file(const char* path, double* out, int64_t cap) {
 // WITHOUT loading the file (fixed 1 MiB window with a carry for tokens split
 // across window edges). This is the bounded-memory distributed-loading tier:
 // the reference's read_HPC_row reads only each rank's row block
-// (read_HPC_row.cpp:255-293); a pod-scale file must never materialize whole
-// per process. Returns tokens written (< cap means the file ended), or -1 on
+// (read_HPC_row.cpp:255-293); a multi-device file must never materialize
+// whole per process. Returns tokens written (< cap means the file ended), or -1 on
 // IO error, -2 on a token longer than the window (not a real text format).
 // ---------------------------------------------------------------------------
 int64_t hpccg_tokenize_range(const char* path, int64_t skip, double* out,
@@ -216,7 +217,7 @@ int64_t hpccg_tokenize_range_at(const char* path, int64_t start_byte,
 // and the block's own counts. global_max_count spans every row, so all
 // processes derive the same uniform ELL width without holding all counts.
 // The caller then range-tokenizes exactly its (val, ind) pairs and
-// x/b/xexact triples (read_HPC_row.cpp:255-293's per-rank read, TPU-style).
+// x/b/xexact triples (read_HPC_row.cpp:255-293's per-rank read).
 // Returns 0, -1 on IO error, -3 on a malformed/short header.
 // ---------------------------------------------------------------------------
 int32_t hpccg_scan_block(const char* path, int64_t start_row,
@@ -400,8 +401,8 @@ int32_t hpccg_write_hpc_row(const char* path, int64_t nrow, int32_t width,
 
 // ---------------------------------------------------------------------------
 // Reverse Cuthill-McKee ordering (the setup-phase index-relabeling tier —
-// the role of make_local_matrix.cpp's renumbering pass, aimed at the TPU
-// kernels' banded formats). BFS from minimum-degree seeds with
+// the role of make_local_matrix.cpp's renumbering pass, aimed at the DIA
+// format and the ELL gather's locality). BFS from minimum-degree seeds with
 // degree-sorted neighbor expansion; output reversed. Graph = symmetric
 // union of the given (row, col) edges; duplicates are harmless (visited
 // flags). Returns 0, or -1 on bad input.
@@ -456,201 +457,6 @@ int32_t hpccg_rcm(int64_t n, int64_t nnz, const int64_t* rows,
     }
   }
   std::reverse(perm_out, perm_out + n);
-  return 0;
-}
-
-// ---------------------------------------------------------------------------
-// Strip-bucketed gather-stack preprocessing (the host half of
-// ops/pallas/gell_stack.py). The NumPy prep is a chain of full-array
-// passes (per-row argsort, strip ids, run starts, a 26M-element fancy
-// scatter) costing ~minutes at 1M x 27; these two single-pass kernels do
-// the same work row-at-a-time. Semantics match the NumPy path EXACTLY
-// (stable sort by column with invalid entries last; each strip of a
-// sorted row is one contiguous run; slot-within-strip = run position).
-//
-// hpccg_stack_scan: per-strip ELL widths + per-(strip, slot) chunk-scan
-// bounds over valid entries. widths must be zero-initialized; lo_sw
-// INT32_MAX-initialized and hi_sw (-1)-initialized, both sized S*width.
-// Returns 0, or -1 on an out-of-range strip id / window index.
-int32_t hpccg_stack_scan(int64_t n, int32_t width, const int32_t* cols,
-                         const uint8_t* valid, int64_t pbl, int64_t w_el,
-                         int64_t S, int64_t* widths, int32_t* lo_sw,
-                         int32_t* hi_sw) {
-  if (n < 0 || width <= 0 || w_el <= 0 || S < 0) return -1;
-  std::vector<std::pair<int64_t, int32_t>> row;  // (col, original slot)
-  row.reserve(width);
-  for (int64_t i = 0; i < n; ++i) {
-    row.clear();
-    const int64_t off = i * width;
-    for (int32_t w = 0; w < width; ++w)
-      if (valid[off + w]) row.emplace_back((int64_t)cols[off + w], w);
-    std::stable_sort(row.begin(), row.end(),
-                     [](const auto& a, const auto& b) { return a.first < b.first; });
-    const int64_t tile_base = (i / 1024) * 1024;
-    int64_t cur_sid = -1, slot = 0;
-    for (const auto& e : row) {
-      const int64_t sid = (e.first - i + pbl) / w_el;
-      if (sid < 0 || sid >= S) return -1;
-      slot = (sid == cur_sid) ? slot + 1 : 0;
-      cur_sid = sid;
-      if (slot + 1 > widths[sid]) widths[sid] = slot + 1;
-      const int64_t li = e.first - tile_base - (sid * w_el - pbl);
-      if (li < 0 || li > 32767) return -1;
-      const int32_t ci = (int32_t)(li >> 7);
-      int32_t* lo = &lo_sw[sid * width + slot];
-      int32_t* hi = &hi_sw[sid * width + slot];
-      if (ci < *lo) *lo = ci;
-      if (ci > *hi) *hi = ci;
-    }
-  }
-  return 0;
-}
-
-// hpccg_stack_fill: scatter the (value, window-local index) pairs straight
-// into the (T, wtot, 8, 128) tile layout. vals arrive as f64 regardless of
-// the matrix dtype; dd=0 writes (float)v into vp4 (vp4lo unused), dd=1
-// writes the exact double-float split (hi, lo) pair. vp4/vp4lo must be
-// zero-initialized and lp4 prefilled with each slot's parking index
-// (lo_sw*128 mapped through base — gell_stack.py does this with one
-// broadcast). base[s] = first output slot column of strip s (-1 = strip
-// empty/dropped). Returns 0, or -1 on inconsistent inputs.
-int32_t hpccg_stack_fill(int64_t n, int32_t width, const double* vals,
-                         const int32_t* cols, const uint8_t* valid,
-                         int64_t pbl, int64_t w_el, int64_t S,
-                         const int64_t* base, int64_t wtot, int32_t dd,
-                         float* vp4, float* vp4lo, int16_t* lp4) {
-  if (n < 0 || width <= 0 || w_el <= 0 || S < 0 || wtot <= 0) return -1;
-  std::vector<std::pair<int64_t, int32_t>> row;
-  row.reserve(width);
-  for (int64_t i = 0; i < n; ++i) {
-    row.clear();
-    const int64_t off = i * width;
-    for (int32_t w = 0; w < width; ++w)
-      if (valid[off + w]) row.emplace_back((int64_t)cols[off + w], w);
-    std::stable_sort(row.begin(), row.end(),
-                     [](const auto& a, const auto& b) { return a.first < b.first; });
-    const int64_t t = i / 1024;
-    const int64_t tile_base = t * 1024;
-    const int64_t s_i = (i % 1024) / 128;
-    const int64_t l_i = i % 128;
-    int64_t cur_sid = -1, slot = 0;
-    for (const auto& e : row) {
-      const int64_t sid = (e.first - i + pbl) / w_el;
-      if (sid < 0 || sid >= S) return -1;
-      slot = (sid == cur_sid) ? slot + 1 : 0;
-      cur_sid = sid;
-      const int64_t b0 = base[sid];
-      if (b0 < 0 || b0 + slot >= wtot) return -1;
-      const int64_t li = e.first - tile_base - (sid * w_el - pbl);
-      const int64_t flat = ((t * wtot + (b0 + slot)) * 8 + s_i) * 128 + l_i;
-      const double v = vals[off + e.second];
-      if (dd) {
-        const float hi = (float)v;
-        vp4[flat] = hi;
-        vp4lo[flat] = (float)(v - (double)hi);
-      } else {
-        vp4[flat] = (float)v;
-      }
-      lp4[flat] = (int16_t)li;
-    }
-  }
-  return 0;
-}
-
-// ---------------------------------------------------------------------------
-// Lockstep greedy slot assignment for the dynamic-window gather tier (the
-// host half of ops/pallas/gell_dynwin.py::_greedy_assign — semantics match
-// the NumPy path EXACTLY, pinned by test_gell_dynwin's bitwise test).
-// Entries arrive flat, row-major and column-sorted: ci_flat[k] = chunk
-// index of entry k in the padded x; row_starts/counts delimit each row's
-// run. Per output slot w: each 1024-row tile's base is its min pending
-// chunk aligned down to 8 (SUB) chunks — or the tile's previous base once
-// it has no pending entries (keeps every stored base inside the tile's
-// own window range for shard rebasing) — and every row whose next entry
-// falls in [base, base + K) consumes it into slot w. The min row always
-// fits, so each round makes progress. bases_out is (max_w, T) row-major
-// (caller transposes to (T, W)); slot_out is per-entry. Returns W, or -1
-// past max_w slots.
-int32_t hpccg_dynwin_greedy(int64_t n, int64_t T, int64_t nnz,
-                            const int64_t* ci_flat, const int64_t* row_starts,
-                            const int64_t* counts, int64_t K, int64_t max_w,
-                            int64_t* slot_out, int64_t* bases_out) {
-  if (n < 0 || T <= 0 || nnz < 0 || K <= 0 || max_w <= 0) return -1;
-  std::vector<int64_t> ptr(n, 0);
-  std::vector<int64_t> prev_base(T, 0);
-  int64_t remaining = 0;
-  for (int64_t i = 0; i < n; ++i) remaining += counts[i];
-  const int64_t INF = std::numeric_limits<int64_t>::max();
-  int64_t w = 0;
-  while (remaining > 0) {
-    if (w >= max_w) return -1;
-    int64_t* base_row = bases_out + w * T;
-    for (int64_t t = 0; t < T; ++t) {
-      const int64_t r0 = t * 1024;
-      const int64_t r1 = std::min(n, r0 + 1024);
-      int64_t tmin = INF;
-      for (int64_t i = r0; i < r1; ++i)
-        if (ptr[i] < counts[i]) {
-          const int64_t c = ci_flat[row_starts[i] + ptr[i]];
-          if (c < tmin) tmin = c;
-        }
-      const int64_t base = (tmin == INF) ? prev_base[t] : ((tmin >> 3) << 3);
-      prev_base[t] = base;
-      base_row[t] = base;
-      for (int64_t i = r0; i < r1; ++i)
-        if (ptr[i] < counts[i]) {
-          const int64_t k = row_starts[i] + ptr[i];
-          if (ci_flat[k] < base + K) {
-            slot_out[k] = w;
-            ++ptr[i];
-            --remaining;
-          }
-        }
-    }
-    ++w;
-  }
-  return (int32_t)w;
-}
-
-// hpccg_dynwin_fill: scatter the (value, window-local index) pairs of the
-// greedy assignment straight into the (T, W, 8, 128) tile layout (the
-// NumPy fancy-index scatter is the remaining full-nnz pass after the
-// greedy went native). Entries arrive flat in the greedy's order
-// (row-major, column-sorted): pos_flat = element position in the padded
-// x, slot from hpccg_dynwin_greedy, bases (T, W) row-major. vals arrive
-// f64 regardless of matrix dtype; dd=1 writes the exact double-float
-// (hi, lo) split. vp4/vp4lo/lp4 must be zero-initialized (dynwin parks
-// empty slots at window-local 0). Returns 0, or -1 on a slot/index out
-// of range.
-int32_t hpccg_dynwin_fill(int64_t n, int64_t nnz, const double* vals_flat,
-                          const int64_t* pos_flat, const int64_t* row_starts,
-                          const int64_t* counts, const int64_t* slot,
-                          const int64_t* bases, int64_t W, int64_t K,
-                          int32_t dd, float* vp4, float* vp4lo,
-                          int16_t* lp4) {
-  if (n < 0 || nnz < 0 || W <= 0 || K <= 0) return -1;
-  for (int64_t i = 0; i < n; ++i) {
-    const int64_t t = i / 1024;
-    const int64_t s_i = (i % 1024) / 128;
-    const int64_t l_i = i % 128;
-    const int64_t k0 = row_starts[i];
-    for (int64_t k = k0; k < k0 + counts[i]; ++k) {
-      const int64_t w = slot[k];
-      if (w < 0 || w >= W) return -1;
-      const int64_t li = pos_flat[k] - bases[t * W + w] * 128;
-      if (li < 0 || li >= K * 128) return -1;
-      const int64_t flat = ((t * W + w) * 8 + s_i) * 128 + l_i;
-      const double v = vals_flat[k];
-      if (dd) {
-        const float hi = (float)v;
-        vp4[flat] = hi;
-        vp4lo[flat] = (float)(v - (double)hi);
-      } else {
-        vp4[flat] = (float)v;
-      }
-      lp4[flat] = (int16_t)li;
-    }
-  }
   return 0;
 }
 

@@ -1,12 +1,13 @@
-"""hpccg_tpu — a TPU-native sparse linear-algebra / conjugate-gradient framework.
+"""hpccg_tpu — a sparse linear-algebra / conjugate-gradient framework in JAX.
 
-Built from scratch in JAX/XLA/Pallas with the full capability surface of the
-HPCCG mini-app (reference: Dart120/HPCCG-SYCL):
+Built from scratch in JAX/XLA (one Pallas kernel, compiled through Triton
+for NVIDIA GPUs) with the full capability surface of the HPCCG mini-app
+(reference: Dart120/HPCCG-SYCL):
 
 - 27-point / 7-point 3-D stencil problem generators (ref generate_matrix.cpp)
-- SpMV as (a) an implicit stencil operator — the TPU-first design: A@x is a
-  one-pass 27-point stencil, not a random gather — and (b) a general padded-ELL
-  matrix with XLA and Pallas gather kernels (ref HPC_sparsemv.cpp)
+- SpMV as (a) an implicit stencil operator — A@x is a one-pass 27-point
+  stencil, not a random gather — and (b) explicit matrices: banded DIA
+  (gather-free) or padded ELL with an XLA gather (ref HPC_sparsemv.cpp)
 - fused ddot / waxpby / residual vector ops (ref ddot.cpp, waxpby.cpp,
   compute_residual.cpp)
 - the full CG iteration loop as a single jitted lax.while_loop
@@ -18,7 +19,8 @@ HPCCG mini-app (reference: Dart120/HPCCG-SYCL):
 
 The package layout maps the reference's layer map (SURVEY.md §1):
   models/    — problem construction (L1): stencil generator, HPC-row file IO
-  ops/       — compute kernels (L3): SpMV, ddot, waxpby, residual; Pallas tier
+  ops/       — compute kernels (L3): SpMV, ddot, waxpby, residual; the fused
+               Triton direction kernel (stencil_kernel.py)
   parallel/  — communication layer (L2): mesh, halo exchange, distributed CG
   solver.py  — CG solver (L4)
   cli.py     — driver / report (L5/L0)

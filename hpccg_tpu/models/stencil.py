@@ -89,7 +89,7 @@ def _ell_arrays(cfg: ProblemConfig, start_row: int, total_nrow: int):
     width = len(offs)
 
     if total_nrow > 2**31:
-        # EllMatrix.cols is int32 (the TPU-native index width); a >2^31-row
+        # EllMatrix.cols is int32 (half the index bytes of int64); a >2^31-row
         # explicit matrix would wrap silently. The implicit StencilOperator
         # has no such limit — use it (or shard the explicit build).
         raise ValueError(

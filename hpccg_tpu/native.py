@@ -25,6 +25,15 @@ _lib = None
 _build_failed = False
 
 
+def _compile(src_path: str) -> None:
+    # no -march=native: the checkout (and any .so built in it) may move to a
+    # host with another CPU, where native instructions would fault
+    subprocess.run(
+        ["g++", "-O3", "-shared", "-fPIC", src_path, "-o", _SO],
+        check=True, capture_output=True, timeout=120,
+    )
+
+
 def _build() -> Optional[ctypes.CDLL]:
     global _build_failed
     src_path = os.path.join(_SRC, "hpccg_host.cpp")
@@ -33,31 +42,22 @@ def _build() -> Optional[ctypes.CDLL]:
         return None
     os.makedirs(os.path.dirname(_SO), exist_ok=True)
     if not os.path.exists(_SO) or os.path.getmtime(_SO) < os.path.getmtime(src_path):
-        cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", src_path, "-o", _SO]
         try:
-            subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-        except Exception:
+            _compile(src_path)
+        except (OSError, subprocess.SubprocessError):
             _build_failed = True
             return None
     try:
-        lib = ctypes.CDLL(_SO)
-    except OSError:
-        _build_failed = True
-        return None
-
-    try:
-        return _bind(lib)
-    except AttributeError:
-        # stale prebuilt .so missing newer symbols (e.g. extracted with
-        # preserved mtimes): force one rebuild, then give up cleanly
+        return _bind(ctypes.CDLL(_SO))
+    except (OSError, AttributeError):
+        # a stale or foreign prebuilt .so (e.g. extracted with preserved
+        # mtimes, or missing newer symbols): force one rebuild, then give up
+        # cleanly
         try:
             os.remove(_SO)
-            subprocess.run(
-                ["g++", "-O3", "-march=native", "-shared", "-fPIC", src_path, "-o", _SO],
-                check=True, capture_output=True, timeout=120,
-            )
+            _compile(src_path)
             return _bind(ctypes.CDLL(_SO))
-        except Exception:
+        except (OSError, AttributeError, subprocess.SubprocessError):
             _build_failed = True
             return None
 
@@ -125,66 +125,6 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_double),
         ctypes.POINTER(ctypes.c_double),
         ctypes.POINTER(ctypes.c_double),
-    ]
-    lib.hpccg_stack_scan.restype = ctypes.c_int32
-    lib.hpccg_stack_scan.argtypes = [
-        ctypes.c_int64,
-        ctypes.c_int32,
-        ctypes.POINTER(ctypes.c_int32),
-        ctypes.POINTER(ctypes.c_uint8),
-        ctypes.c_int64,
-        ctypes.c_int64,
-        ctypes.c_int64,
-        ctypes.POINTER(ctypes.c_int64),
-        ctypes.POINTER(ctypes.c_int32),
-        ctypes.POINTER(ctypes.c_int32),
-    ]
-    lib.hpccg_dynwin_greedy.restype = ctypes.c_int32
-    lib.hpccg_dynwin_greedy.argtypes = [
-        ctypes.c_int64,
-        ctypes.c_int64,
-        ctypes.c_int64,
-        ctypes.POINTER(ctypes.c_int64),
-        ctypes.POINTER(ctypes.c_int64),
-        ctypes.POINTER(ctypes.c_int64),
-        ctypes.c_int64,
-        ctypes.c_int64,
-        ctypes.POINTER(ctypes.c_int64),
-        ctypes.POINTER(ctypes.c_int64),
-    ]
-    lib.hpccg_dynwin_fill.restype = ctypes.c_int32
-    lib.hpccg_dynwin_fill.argtypes = [
-        ctypes.c_int64,
-        ctypes.c_int64,
-        ctypes.POINTER(ctypes.c_double),
-        ctypes.POINTER(ctypes.c_int64),
-        ctypes.POINTER(ctypes.c_int64),
-        ctypes.POINTER(ctypes.c_int64),
-        ctypes.POINTER(ctypes.c_int64),
-        ctypes.POINTER(ctypes.c_int64),
-        ctypes.c_int64,
-        ctypes.c_int64,
-        ctypes.c_int32,
-        ctypes.POINTER(ctypes.c_float),
-        ctypes.POINTER(ctypes.c_float),
-        ctypes.POINTER(ctypes.c_int16),
-    ]
-    lib.hpccg_stack_fill.restype = ctypes.c_int32
-    lib.hpccg_stack_fill.argtypes = [
-        ctypes.c_int64,
-        ctypes.c_int32,
-        ctypes.POINTER(ctypes.c_double),
-        ctypes.POINTER(ctypes.c_int32),
-        ctypes.POINTER(ctypes.c_uint8),
-        ctypes.c_int64,
-        ctypes.c_int64,
-        ctypes.c_int64,
-        ctypes.POINTER(ctypes.c_int64),
-        ctypes.c_int64,
-        ctypes.c_int32,
-        ctypes.POINTER(ctypes.c_float),
-        ctypes.POINTER(ctypes.c_float),
-        ctypes.POINTER(ctypes.c_int16),
     ]
     return lib
 
@@ -350,108 +290,3 @@ def rcm(n: int, rows: np.ndarray, cols: np.ndarray) -> Optional[np.ndarray]:
     if rc != 0:
         raise ValueError("hpccg_rcm: bad input (indices out of range)")
     return perm
-
-
-def stack_scan(n, width, cols, valid, pbl, w_el, S):
-    """Native pass 1 of the gather-stack prep: (widths, lo_sw, hi_sw) —
-    per-strip ELL widths and per-(strip, slot) chunk bounds. Returns None
-    if the library is unavailable; raises on inconsistent inputs."""
-    lib = _get()
-    if lib is None:
-        return None
-    cols = np.ascontiguousarray(cols, np.int32)
-    valid = np.ascontiguousarray(valid, np.uint8)
-    widths = np.zeros(max(S, 1), np.int64)
-    lo_sw = np.full(max(S, 1) * width, np.iinfo(np.int32).max, np.int32)
-    hi_sw = np.full(max(S, 1) * width, -1, np.int32)
-    rc = lib.hpccg_stack_scan(
-        n, width, _ptr(cols, ctypes.c_int32), _ptr(valid, ctypes.c_uint8),
-        pbl, w_el, S, _ptr(widths, ctypes.c_int64),
-        _ptr(lo_sw, ctypes.c_int32), _ptr(hi_sw, ctypes.c_int32),
-    )
-    if rc != 0:
-        raise ValueError("hpccg_stack_scan: strip/window index out of range")
-    return widths, lo_sw.reshape(max(S, 1), width), hi_sw.reshape(max(S, 1), width)
-
-
-def dynwin_greedy(n, T, ci_flat, row_starts, counts, K, max_w):
-    """Native lockstep greedy slot assignment for the dynamic-window tier
-    (bitwise-equal to gell_dynwin._greedy_assign's NumPy path). Returns
-    (slot per entry, W, bases (T, W)); False when the assignment exceeds
-    max_w slots (a REAL answer — the NumPy path would overflow
-    identically, so the caller must not re-run it); None when the library
-    is unavailable."""
-    lib = _get()
-    if lib is None:
-        return None
-    ci_flat = np.ascontiguousarray(ci_flat, np.int64)
-    row_starts = np.ascontiguousarray(row_starts, np.int64)
-    counts = np.ascontiguousarray(counts, np.int64)
-    nnz = len(ci_flat)
-    slot = np.empty(nnz, np.int64)
-    bases = np.zeros((max_w, T), np.int64)
-    W = lib.hpccg_dynwin_greedy(
-        n, T, nnz, _ptr(ci_flat, ctypes.c_int64),
-        _ptr(row_starts, ctypes.c_int64), _ptr(counts, ctypes.c_int64),
-        K, max_w, _ptr(slot, ctypes.c_int64), _ptr(bases, ctypes.c_int64),
-    )
-    if W < 0:
-        return False
-    return slot, int(W), np.ascontiguousarray(bases[:W].T)
-
-
-def dynwin_fill(n, vals_flat, pos_flat, row_starts, counts, slot, bases, W, K,
-                dd, vp4, vp4lo, lp4):
-    """Native scatter of the greedy assignment into the zero-initialized
-    (T, W, 8, 128) tile layout (bitwise-equal to the NumPy fancy-index
-    path; vals enter f64, dd=True writes the exact double-float split).
-    Returns False when the library is unavailable; raises on an
-    out-of-range slot/index (inconsistent greedy inputs)."""
-    lib = _get()
-    if lib is None:
-        return False
-    vals_flat = np.ascontiguousarray(vals_flat, np.float64)
-    pos_flat = np.ascontiguousarray(pos_flat, np.int64)
-    row_starts = np.ascontiguousarray(row_starts, np.int64)
-    counts = np.ascontiguousarray(counts, np.int64)
-    slot = np.ascontiguousarray(slot, np.int64)
-    bases = np.ascontiguousarray(bases, np.int64)
-    rc = lib.hpccg_dynwin_fill(
-        n, len(pos_flat), _ptr(vals_flat, ctypes.c_double),
-        _ptr(pos_flat, ctypes.c_int64), _ptr(row_starts, ctypes.c_int64),
-        _ptr(counts, ctypes.c_int64), _ptr(slot, ctypes.c_int64),
-        _ptr(bases, ctypes.c_int64), W, K, 1 if dd else 0,
-        _ptr(vp4, ctypes.c_float),
-        _ptr(vp4lo if vp4lo is not None else vp4, ctypes.c_float),
-        _ptr(lp4, ctypes.c_int16),
-    )
-    if rc != 0:
-        raise ValueError("hpccg_dynwin_fill: slot/window index out of range")
-    return True
-
-
-def stack_fill(n, width, vals, cols, valid, pbl, w_el, S, base, wtot, dd,
-               vp4, vp4lo, lp4):
-    """Native pass 2: scatter (value, window-local index) pairs into the
-    zero-initialized (T, wtot, 8, 128) tile layout (lp4 prefilled with
-    parking indices by the caller). vals enter as f64; dd=True writes the
-    exact double-float (hi, lo) split. Returns False if the library is
-    unavailable."""
-    lib = _get()
-    if lib is None:
-        return False
-    vals = np.ascontiguousarray(vals, np.float64)
-    cols = np.ascontiguousarray(cols, np.int32)
-    valid = np.ascontiguousarray(valid, np.uint8)
-    base = np.ascontiguousarray(base, np.int64)
-    rc = lib.hpccg_stack_fill(
-        n, width, _ptr(vals, ctypes.c_double), _ptr(cols, ctypes.c_int32),
-        _ptr(valid, ctypes.c_uint8), pbl, w_el, S,
-        _ptr(base, ctypes.c_int64), wtot, 1 if dd else 0,
-        _ptr(vp4, ctypes.c_float),
-        _ptr(vp4lo if vp4lo is not None else vp4, ctypes.c_float),
-        _ptr(lp4, ctypes.c_int16),
-    )
-    if rc != 0:
-        raise ValueError("hpccg_stack_fill: slot/strip index out of range")
-    return True

@@ -1,11 +1,11 @@
 """Matrix operators — the framework's central data contract.
 
 Replaces the reference's jagged-CSR ``HPC_Sparse_Matrix`` struct
-(HPC_Sparse_Matrix.hpp:54-85) with two TPU-first representations:
+(HPC_Sparse_Matrix.hpp:54-85) with three representations:
 
 - :class:`StencilOperator` — an *implicit* operator for the generated 27/7-pt
   problems. The reference stores 27 explicit (val, col) pairs per row and does
-  a random gather per nonzero (HPC_sparsemv.cpp:76-87). On TPU the same A@x is
+  a random gather per nonzero (HPC_sparsemv.cpp:76-87). The same A@x is
   a dense 3-D stencil: A@x = 28*x - S(x) where S is the (boundary-clipped)
   neighbor sum *including self* — because every off-diagonal is -1.0 and every
   diagonal is 27.0 (generate_matrix.cpp:268-274). This turns a ~12 B/nnz
@@ -15,6 +15,9 @@ Replaces the reference's jagged-CSR ``HPC_Sparse_Matrix`` struct
 - :class:`EllMatrix` — a general explicit matrix in padded ELL format (dense
   (nrow, width) vals/cols with a validity mask), for file-loaded or arbitrary
   matrices. Fixed width keeps everything static-shaped for XLA.
+
+- :class:`DiaMatrix` — diagonal storage for banded explicit matrices: a
+  gather-free matvec of one shifted multiply-add per diagonal.
 
 Vectors are flat (n,) arrays ordered row-major over (iz, iy, ix), exactly the
 reference's ``currow = iz*nx*ny + iy*nx + ix`` numbering
@@ -236,12 +239,14 @@ class EllMatrix:
         contribute nothing regardless of the (clamped) gathered value.
         """
         gathered = jnp.take(x, self.cols, axis=0, mode="clip")
-        return jnp.einsum("rw,rw->r", self.vals, gathered)
+        # multiply-reduce, not einsum: a dot may run in TF32 on GPU tensor
+        # cores (see ops.vector.ddot)
+        return jnp.sum(self.vals * gathered, axis=1)
 
     def matvec_local(self, x_local: jax.Array) -> jax.Array:
         """y = A @ x for a single partition holding the full row range."""
         gathered = jnp.take(x_local, self.local_cols(), axis=0, mode="clip")
-        return jnp.einsum("rw,rw->r", self.vals, gathered)
+        return jnp.sum(self.vals * gathered, axis=1)
 
     def __call__(self, x: jax.Array) -> jax.Array:
         return self.matvec(x)
@@ -305,7 +310,7 @@ class EllMatrix:
 
 
 # ---------------------------------------------------------------------------
-# DiaMatrix — TPU-native general explicit path (no gather)
+# DiaMatrix — banded explicit path (no gather)
 # ---------------------------------------------------------------------------
 
 
@@ -318,13 +323,13 @@ class EllMatrix:
 class DiaMatrix:
     """Diagonal (DIA) storage: y = sum_d data[d, :] * x[row + offsets[d]].
 
-    The TPU-first explicit format: TPUs have no fast hardware gather (the ELL
-    matvec's jnp.take is orders of magnitude off the roofline), but the
-    matrices in this domain are banded — a stencil matrix has <= 27 distinct
-    (col - row) offsets. With static offsets every diagonal's contribution is
-    a shifted elementwise multiply, so the whole SpMV is one fused vectorized
-    pass: ~8 B/nnz of traffic (value only) vs the reference CSR's >= 12 B/nnz
-    (value + index + gather), and zero data-dependent addressing.
+    The matrices in this domain are banded — a stencil matrix has <= 27
+    distinct (col - row) offsets. With static offsets every diagonal's
+    contribution is a shifted elementwise multiply, so the whole SpMV is one
+    fused vectorized pass: ~8 B/nnz of traffic (value only) vs the reference
+    CSR's >= 12 B/nnz (value + index + gather), and zero data-dependent
+    addressing. reorder.auto_structure picks it over ELL only while its
+    stored slots cost fewer bytes than ELL's (value, index) pairs.
 
     ``offsets`` are static pytree metadata — each distinct sparsity pattern
     compiles once, exactly like the reference rebuilding its comm-plan per
@@ -356,28 +361,8 @@ class DiaMatrix:
 
         Rolls + iota masks (instead of .at[].add slice updates, which
         materialize a fresh y per diagonal) let XLA fuse the whole band into
-        a single pass: traffic = ndiag+2 vector reads.
-
-        Past ~128 diagonals the unrolled fusion stops being the right shape
-        (XLA graph size grows linearly and fusion quality degrades); on TPU
-        the blocked-DIA Pallas kernel takes over — diagonal data streamed
-        from HBM with scalar-prefetched offsets, any diagonal count
-        (ops/pallas/dia_kernel.py)."""
+        a single pass: traffic = ndiag+2 vector reads."""
         n = self.local_nrow
-        if self.ndiag > 128 and jax.default_backend() == "tpu":
-            from hpccg_tpu.ops.pallas.dia_kernel import (
-                dia_pallas_supported,
-                prepare_dia,
-                spmv_dia_pallas,
-            )
-
-            if dia_pallas_supported(self.offsets, n, x.dtype):
-                if isinstance(self.data, jax.core.Tracer):
-                    # traced matrix: the layout pad becomes part of the
-                    # program (and may NOT be hoisted out of a solve loop —
-                    # convert to PreparedDia before jit, as make_cg does)
-                    return spmv_dia_pallas(self, x)
-                return prepare_dia(self).matvec(x)
         rows = jax.lax.iota(jnp.int32, n)
         y = jnp.zeros((n,), jnp.result_type(self.dtype, x.dtype))
         for d, off in enumerate(self.offsets):

@@ -1,11 +1,10 @@
 """SpMV dispatch (ref HPC_sparsemv.cpp:68-109).
 
-Backends:
-- "stencil": implicit-operator stencil matvec (StencilOperator.matvec) — the
-  TPU-first fast path (separable neighbor sums; no gather at all).
-- "ell": XLA gather + masked contraction over the padded-ELL layout
-  (EllMatrix.matvec) — the general path and correctness oracle.
-- "pallas": Pallas kernels (hpccg_tpu.ops.pallas) — row-tiled native kernels.
+Every operator representation carries its own ``matvec``:
+- StencilOperator: implicit stencil (separable neighbor sums; no gather);
+- DiaMatrix: masked roll-multiply-add per diagonal, one XLA fusion;
+- EllMatrix: gather by column index + row reduction (the general path and
+  correctness oracle).
 """
 
 from __future__ import annotations
@@ -15,23 +14,8 @@ import jax
 from hpccg_tpu.operators import DiaMatrix, EllMatrix, StencilOperator
 
 
-def spmv(A, x: jax.Array, *, backend: str = "auto") -> jax.Array:
+def spmv(A, x: jax.Array) -> jax.Array:
     """y = A @ x for any operator representation."""
-    if backend in ("auto", "stencil", "ell", "dia"):
-        from hpccg_tpu.ops.pallas.dia_kernel import PreparedDia, PreparedDiaDD
-        from hpccg_tpu.ops.pallas.gell_dynwin import GellDynwinMatrix
-        from hpccg_tpu.ops.pallas.gell_kernel import GellMatrix
-        from hpccg_tpu.ops.pallas.gell_stack import GellStackMatrix
-
-        if isinstance(
-            A,
-            (StencilOperator, EllMatrix, DiaMatrix, PreparedDia, PreparedDiaDD,
-             GellMatrix, GellStackMatrix, GellDynwinMatrix),
-        ):
-            return A.matvec(x)
-        raise TypeError(f"unknown operator type {type(A)}")
-    if backend == "pallas":
-        from hpccg_tpu.ops.pallas import spmv_pallas
-
-        return spmv_pallas(A, x)
-    raise ValueError(f"unknown spmv backend {backend!r}")
+    if isinstance(A, (StencilOperator, EllMatrix, DiaMatrix)):
+        return A.matvec(x)
+    raise TypeError(f"unknown operator type {type(A)}")

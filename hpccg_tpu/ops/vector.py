@@ -8,7 +8,8 @@ event-chaining (waxpby.cpp:100-119) dissolve into the XLA dataflow graph.
 
 The distributed variants take an ``axis_name`` and reduce with psum/pmax —
 the psum is the exact role of MPI_Allreduce in ddot.cpp:75-82 and
-compute_residual.cpp:68-75, but lowered to an ICI collective by XLA.
+compute_residual.cpp:68-75, lowered by XLA to the device collective (NCCL on
+GPUs).
 """
 
 from __future__ import annotations
@@ -20,8 +21,14 @@ import jax.numpy as jnp
 
 
 def ddot(x: jax.Array, y: jax.Array, *, axis_name: Optional[str] = None) -> jax.Array:
-    """Global dot product (ref ddot.cpp). With axis_name, psum across the mesh."""
-    local = jnp.vdot(x, y)
+    """Global dot product (ref ddot.cpp). With axis_name, psum across the mesh.
+
+    Written as multiply-then-reduce, never as a ``dot``: XLA may run an f32
+    dot on GPU tensor cores in TF32 (about three decimal digits), which
+    would corrupt CG's alpha and beta. An elementwise product and a sum
+    keep full precision under any ``jax_default_matmul_precision``, and
+    fuse into the neighbouring vector update."""
+    local = jnp.sum(x * y)
     if axis_name is not None:
         local = jax.lax.psum(local, axis_name)
     return local

@@ -11,13 +11,9 @@ from hpccg_tpu.parallel.mesh import make_mesh, make_mesh2d, row_axis
 from hpccg_tpu.parallel.halo import exchange_halo, stencil_matvec_halo
 from hpccg_tpu.parallel.cg import (
     generate_problem_sharded,
-    make_collective_dia_cg,
     make_distributed_cg,
     make_distributed_dia_cg,
-    make_distributed_dynwin_cg,
     make_distributed_ell_cg,
-    make_distributed_gell_cg,
-    make_distributed_stack_cg,
 )
 
 __all__ = [
@@ -27,11 +23,7 @@ __all__ = [
     "exchange_halo",
     "stencil_matvec_halo",
     "generate_problem_sharded",
-    "make_collective_dia_cg",
     "make_distributed_cg",
     "make_distributed_dia_cg",
-    "make_distributed_dynwin_cg",
     "make_distributed_ell_cg",
-    "make_distributed_gell_cg",
-    "make_distributed_stack_cg",
 ]

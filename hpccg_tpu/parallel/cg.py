@@ -13,14 +13,13 @@ axpbys — but with zero per-iteration host dispatch.
 from __future__ import annotations
 
 from functools import partial
-from typing import Optional
 
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from hpccg_tpu.config import ProblemConfig
-from hpccg_tpu.models.stencil import Problem, generate_ell
+from hpccg_tpu.models.stencil import Problem
 from hpccg_tpu.operators import EllMatrix, StencilOperator
 from hpccg_tpu.ops.vector import ddot
 from hpccg_tpu.parallel.halo import stencil_matvec_halo
@@ -39,9 +38,8 @@ def _method_runner(method: str, axis: Axis, replace_every: int = 0):
     "cg" = the reference 2-allreduce recurrence (HPCCG.cpp:367,381),
     "cg1" = Chronopoulos-Gear single fused reduction, "pipecg" =
     Ghysels-Vanroose (the reduction overlaps the SpMV). Shared by every
-    file-matrix distributed factory so --method works on loaded matrices,
-    not just the generated stencil (the pod model shows the one-reduction
-    recurrences are what pod-scale latency budgets require)."""
+    distributed factory so --method works on loaded matrices and the
+    generated stencil alike."""
     if method == "cg":
 
         def run(matvec, b, x0, *, max_iter, tolerance):
@@ -53,12 +51,12 @@ def _method_runner(method: str, axis: Axis, replace_every: int = 0):
         return run
     if method not in ("cg1", "pipecg"):
         raise ValueError(f"unknown CG method {method!r}")
-    from hpccg_tpu.solver import cg_solve_pipelined, cg_solve_single_reduction
+    from hpccg_tpu.solver import SOLVERS
 
-    solver_fn = cg_solve_single_reduction if method == "cg1" else cg_solve_pipelined
+    solver_fn = SOLVERS[method]
 
     def pdot2(p1, p2):
-        tot = jax.lax.psum(jnp.stack([jnp.vdot(*p1), jnp.vdot(*p2)]), axis)
+        tot = jax.lax.psum(jnp.stack([ddot(*p1), ddot(*p2)]), axis)
         return tot[0], tot[1]
 
     def run(matvec, b, x0, *, max_iter, tolerance):
@@ -71,12 +69,11 @@ def _method_runner(method: str, axis: Axis, replace_every: int = 0):
 
 
 class _BoundedCache(dict):
-    """FIFO-bounded memo dict for the solver factories' jitted closures and
-    prep uploads. The memos exist so a warm call never retraces inside the
-    caller's timed region (PERF.md round-3 pitfall); the bound exists so a
-    long-lived process sweeping many matrix layouts cannot grow them without
-    limit (round-3 VERDICT weak #5). Eviction drops the oldest entry — its
-    XLA executable is reclaimed once no caller holds it; re-solving that
+    """FIFO-bounded memo dict for the solver factories' jitted closures.
+    The memo exists so a warm call never retraces inside the caller's timed
+    region; the bound exists so a long-lived process sweeping many matrix
+    layouts cannot grow it without limit. Eviction drops the oldest entry —
+    its XLA executable is reclaimed once no caller holds it; re-solving that
     layout later costs one retrace, not correctness."""
 
     def __init__(self, maxsize: int = 16):
@@ -147,21 +144,6 @@ def generate_problem_sharded(
     )
 
 
-def resolve_distributed_backend(cfg_local: ProblemConfig, backend: str = "auto") -> str:
-    """The auto rule for the distributed stencil solve, exposed so the CLI's
-    Time-Summary micro-benchmarks measure the tier that actually ran
-    (round-2 weak #2): per-shard pallas kernel + ppermuted halo planes on
-    TPU for 32- and 16-bit state (bf16 rides the same v2 kernel — f32
-    in-kernel compute, bf16 HBM traffic), XLA stencil elsewhere."""
-    if backend == "auto" and jax.default_backend() == "tpu":
-        if jnp.dtype(cfg_local.dtype).itemsize in (2, 4):
-            return "pallas"
-        if jnp.dtype(cfg_local.dtype).itemsize == 8:
-            # f64 shards ride the double-float (two-f32) kernel (round 3)
-            return "pallas_dd"
-    return backend
-
-
 def make_distributed_cg(
     cfg_local: ProblemConfig,
     mesh: Mesh,
@@ -169,306 +151,20 @@ def make_distributed_cg(
     max_iter: int,
     tolerance: float = 0.0,
     axis: Axis = Z_AXIS,
-    backend: str = "auto",
     method: str = "cg",
     replace_every: int = 0,
 ):
     """Jitted distributed solve(b, x0) -> CGResult for the stencil operator.
 
     b/x0 are global flat (n_total,) arrays sharded P(axis); the result x comes
-    back sharded the same way, trace/niters/normr replicated. backend="pallas"
-    runs each shard's CG state in the padded-plane layout with the one-pass
-    Pallas SpMV (halo planes ppermuted into the kernel's halo input).
+    back sharded the same way, trace/niters/normr replicated. Each shard
+    runs the XLA halo stencil (ppermuted boundary planes, overlapped with
+    the interior); method="cg1"/"pipecg" collapse the iteration's two
+    allreduces into one psum of a stacked 2-vector (pipecg also overlaps it
+    with the SpMV; PAPERS.md).
     """
     op_local = local_operator(cfg_local)
-    pdot = lambda u, v: ddot(u, v, axis_name=axis)  # noqa: E731
-
-    backend = resolve_distributed_backend(cfg_local, backend)
-
-    if method in ("cg1", "pipecg") and backend != "collective":
-        # one-reduction CG variants: the iteration's two allreduces collapse
-        # into one psum of a stacked 2-vector (cg1, Chronopoulos-Gear), and
-        # pipecg additionally overlaps that psum with the SpMV
-        # (Ghysels-Vanroose; PAPERS.md).
-        from hpccg_tpu.solver import cg_solve_pipelined, cg_solve_single_reduction
-
-        solver_fn = (
-            cg_solve_single_reduction if method == "cg1" else cg_solve_pipelined
-        )
-
-        def pdot2(p1, p2):
-            tot = jax.lax.psum(
-                jnp.stack([jnp.vdot(*p1), jnp.vdot(*p2)]), axis
-            )
-            return tot[0], tot[1]
-
-        if backend in ("pallas", "pallas_dd"):
-            from hpccg_tpu.ops.pallas.stencil_v2 import pad_plane3, unpad_plane3
-            from hpccg_tpu.parallel.halo import (
-                stencil_matvec_halo_pallas_v2_overlap,
-            )
-
-            dd1 = backend == "pallas_dd"
-
-            @jax.jit
-            @partial(
-                jax.shard_map,
-                mesh=mesh,
-                in_specs=(P(axis), P(axis)),
-                out_specs=_result_specs(P(axis)),
-                check_vma=False,
-            )
-            def solve_1red_pallas(b, x0):
-                res = solver_fn(
-                    lambda v: stencil_matvec_halo_pallas_v2_overlap(
-                        op_local, v, axis, dd=dd1
-                    ),
-                    pad_plane3(op_local, b),
-                    pad_plane3(op_local, x0),
-                    max_iter=max_iter,
-                    tolerance=tolerance,
-                    dot2=pdot2,
-                    replace_every=replace_every,
-                )
-                return CGResult(
-                    x=unpad_plane3(op_local, res.x),
-                    niters=res.niters,
-                    normr=res.normr,
-                    rtrans=res.rtrans,
-                    trace=res.trace,
-                )
-
-            return solve_1red_pallas
-
-        @jax.jit
-        @partial(
-            jax.shard_map,
-            mesh=mesh,
-            in_specs=(P(axis), P(axis)),
-            out_specs=_result_specs(P(axis)),
-        )
-        def solve_1red(b, x0):
-            return solver_fn(
-                lambda v: stencil_matvec_halo(op_local, v, axis),
-                b,
-                x0,
-                max_iter=max_iter,
-                tolerance=tolerance,
-                dot2=pdot2,
-                replace_every=replace_every,
-            )
-
-        return solve_1red
-    if method not in ("cg", "cg1", "pipecg"):
-        raise ValueError(f"unknown CG method {method!r}")
-    # (a one-reduction method with backend == "collective" reaches here and
-    # falls through: the collective kernel's in-kernel allreduce IS cg1)
-
-    # backend='collective' over a 2-D ('host','z') mesh: the kernels compute
-    # partners on the FLATTENED logical index (lax.axis_index of the axis
-    # tuple) and address RDMA by scalar LOGICAL device id, which Mosaic
-    # linearizes over the mesh — verified trace-equal to the 1-D mesh on the
-    # virtual-device interpreter (tests/test_mesh2d.py); pod hardware
-    # lowering is untested here (one chip), like the rest of the collective
-    # kernels' multi-chip claims.
-    if backend == "collective":
-        # the whole multi-chip solve is ONE Pallas call per shard: in-kernel
-        # RDMA halo exchange + in-kernel scalar allreduce, zero XLA dispatch
-        # per iteration (ops/pallas/collective_kernel.py). method="pipecg"
-        # selects the communication-hiding variant (the allreduce RDMAs fly
-        # while the stencil applies); method="cg" runs the REFERENCE
-        # recurrence with two in-kernel allreduces per iteration
-        # (HPCCG.cpp:367,381); method="cg1" the single-reduction kernel.
-        from hpccg_tpu.ops.pallas.collective_kernel import (
-            cg_collective_padded,
-            cg_collective_pipelined_padded,
-            fits_collective_pipelined_vmem,
-            fits_collective_vmem,
-        )
-        from hpccg_tpu.ops.pallas.stencil_v2 import (
-            pad_plane3,
-            unpad_plane3,
-        )
-
-        pipelined = method == "pipecg"
-        fits = (
-            fits_collective_pipelined_vmem if pipelined else fits_collective_vmem
-        )
-        if not fits(op_local, cfg_local.dtype):
-            raise ValueError(
-                "backend='collective' pins the shard's solve vectors in VMEM; "
-                f"a {cfg_local.nx}x{cfg_local.ny}x{cfg_local.nz} shard at "
-                f"{jnp.dtype(cfg_local.dtype).name} does not fit — use "
-                "backend='pallas' (streaming halo) or smaller shards"
-            )
-
-        ndev = axis_size(mesh, axis)
-        kernel_call = (
-            cg_collective_pipelined_padded if pipelined else cg_collective_padded
-        )
-
-        @jax.jit
-        @partial(
-            jax.shard_map,
-            mesh=mesh,
-            in_specs=(P(axis), P(axis)),
-            out_specs=_result_specs(P(axis)),
-            check_vma=False,
-        )
-        def solve_collective(b, x0):
-            kw = {} if pipelined else {"method": method}
-            x_pad, trace, stats = kernel_call(
-                op_local,
-                pad_plane3(op_local, b, 1),
-                pad_plane3(op_local, x0, 1),
-                ndev=ndev,
-                axis=axis,
-                max_iter=max_iter,
-                tolerance=tolerance,
-                **kw,
-            )
-            return CGResult(
-                x=unpad_plane3(op_local, x_pad),
-                niters=stats[0, 2].astype(jnp.int32),
-                normr=stats[0, 0],
-                rtrans=stats[0, 1],
-                trace=trace[:, 0],
-            )
-
-        return solve_collective
-
-    if backend in ("pallas", "pallas_dd"):
-        from hpccg_tpu.ops.pallas.stencil_v2 import (
-            pad_plane3,
-            unpad_plane3,
-        )
-        from hpccg_tpu.parallel.halo import (
-            stencil_matvec_halo_pallas_v2_overlap,
-        )
-
-        dd = backend == "pallas_dd"
-
-        @jax.jit
-        @partial(
-            jax.shard_map,
-            mesh=mesh,
-            in_specs=(P(axis), P(axis)),
-            out_specs=_result_specs(P(axis)),
-            # pallas_call outputs carry no varying-mesh-axes metadata, which
-            # trips shard_map's replication checker; correctness is covered by
-            # the parity tests against the checked XLA path
-            check_vma=False,
-        )
-        def solve_pallas_v2(b, x0):
-            res = cg_solve(
-                lambda v: stencil_matvec_halo_pallas_v2_overlap(
-                    op_local, v, axis, dd=dd
-                ),
-                pad_plane3(op_local, b),
-                pad_plane3(op_local, x0),
-                max_iter=max_iter,
-                tolerance=tolerance,
-                dot=pdot,
-                matvec_pap=lambda v: stencil_matvec_halo_pallas_v2_overlap(
-                    op_local, v, axis, with_pap=True, dd=dd
-                ),
-                pap_reduce=lambda s: jax.lax.psum(s, axis),
-            )
-            return CGResult(
-                x=unpad_plane3(op_local, res.x),
-                niters=res.niters,
-                normr=res.normr,
-                rtrans=res.rtrans,
-                trace=res.trace,
-            )
-
-        return solve_pallas_v2
-
-    if backend in ("pallas_v1", "pallas_fused"):
-        from hpccg_tpu.ops.pallas.stencil_kernel import (
-            pad_plane,
-            plane_masks,
-            unpad_plane,
-        )
-        from hpccg_tpu.parallel.halo import stencil_matvec_halo_pallas
-
-        if backend == "pallas_fused":
-            from hpccg_tpu.solver import cg_solve_fused
-
-            nz = op_local.nz
-            ndev = axis_size(mesh, axis)
-            fwd = [(i, i + 1) for i in range(ndev - 1)]
-            bwd = [(i + 1, i) for i in range(ndev - 1)]
-
-            def _planes(v):
-                below = jax.lax.ppermute(v[nz - 1], axis, fwd)
-                above = jax.lax.ppermute(v[0], axis, bwd)
-                return below, above
-
-            @jax.jit
-            @partial(
-                jax.shard_map,
-                mesh=mesh,
-                in_specs=(P(axis), P(axis)),
-                out_specs=_result_specs(P(axis)),
-                check_vma=False,
-            )
-            def solve_fused(b, x0):
-                masks = jnp.asarray(plane_masks(op_local, b.dtype))
-                res = cg_solve_fused(
-                    op_local,
-                    pad_plane(op_local, b),
-                    pad_plane(op_local, x0),
-                    masks,
-                    max_iter=max_iter,
-                    tolerance=tolerance,
-                    psum=lambda s: jax.lax.psum(s, axis),
-                    halo2_fn=lambda v: jnp.stack(_planes(v)),
-                    halo4_fn=lambda r, p: jnp.stack(_planes(r) + _planes(p)),
-                )
-                return CGResult(
-                    x=unpad_plane(op_local, res.x),
-                    niters=res.niters,
-                    normr=res.normr,
-                    rtrans=res.rtrans,
-                    trace=res.trace,
-                )
-
-            return solve_fused
-
-        @jax.jit
-        @partial(
-            jax.shard_map,
-            mesh=mesh,
-            in_specs=(P(axis), P(axis)),
-            out_specs=_result_specs(P(axis)),
-            # pallas_call outputs carry no varying-mesh-axes metadata, which
-            # trips shard_map's replication checker; correctness is covered by
-            # the parity tests against the checked XLA path
-            check_vma=False,
-        )
-        def solve_pallas(b, x0):
-            masks = jnp.asarray(plane_masks(op_local, b.dtype))
-            res = cg_solve(
-                lambda v: stencil_matvec_halo_pallas(op_local, v, masks, axis),
-                pad_plane(op_local, b),
-                pad_plane(op_local, x0),
-                max_iter=max_iter,
-                tolerance=tolerance,
-                dot=pdot,
-                matvec_donor=lambda v, dead: stencil_matvec_halo_pallas(
-                    op_local, v, masks, axis, dead
-                ),
-            )
-            return CGResult(
-                x=unpad_plane(op_local, res.x),
-                niters=res.niters,
-                normr=res.normr,
-                rtrans=res.rtrans,
-                trace=res.trace,
-            )
-
-        return solve_pallas
+    run = _method_runner(method, axis, replace_every)
 
     @jax.jit
     @partial(
@@ -478,13 +174,9 @@ def make_distributed_cg(
         out_specs=_result_specs(P(axis)),
     )
     def solve(b, x0):
-        return cg_solve(
+        return run(
             lambda v: stencil_matvec_halo(op_local, v, axis),
-            b,
-            x0,
-            max_iter=max_iter,
-            tolerance=tolerance,
-            dot=pdot,
+            b, x0, max_iter=max_iter, tolerance=tolerance,
         )
 
     return solve
@@ -528,24 +220,6 @@ def make_distributed_ell_cg(
     def solve(A: EllMatrix, b, x0):
         if A.start_row != 0:
             raise ValueError("pass the assembled global EllMatrix (start_row=0)")
-        if jax.default_backend() == "tpu" and A.local_nrow >= 100_000:
-            # strictly worse than the single-device gather warning
-            # (solver.resolve_backend): a full-x all_gather every iteration
-            # PLUS the same jnp.take gather. Measured 0.139 Gnnz/s vs the
-            # kernel tiers' 13-188 — say so loudly before a benchmark user
-            # burns hours.
-            import warnings
-
-            warnings.warn(
-                f"distributed all-gather ELL at {A.local_nrow} rows on TPU "
-                "runs ORDERS OF MAGNITUDE below the kernel tiers (measured "
-                "~0.14 Gnnz/s: per-iteration full-x all_gather + no-hardware-"
-                "gather jnp.take); this path exists for correctness on "
-                "matrices with no gather-free structure — if the matrix is "
-                "banded or narrow-band use the DIA-halo or windowed "
-                "gather-ELL distributed paths (auto via the CLI file mode)",
-                stacklevel=2,
-            )
         return _solve(A.vals, A.cols, A.valid, b, x0)
 
     return solve
@@ -557,22 +231,6 @@ def _z_mask(op_local: StencilOperator, shard_idx, nz_global: int, dtype):
     return (z < nz_global).astype(dtype)[:, None]
 
 
-def masked_backend(cfg_local: ProblemConfig, backend: str = "auto") -> str:
-    """Resolve the masked (remainder-shard) solver's kernel tier — shared by
-    make_distributed_cg_masked and sweep.py so reported backends match what
-    actually ran. Same auto policy as the divisible-shard solve
-    (resolve_distributed_backend), with off-TPU auto pinned to the XLA
-    stencil (the masked path has no other fallback tier)."""
-    if backend == "auto":
-        resolved = resolve_distributed_backend(cfg_local, "auto")
-        return "stencil" if resolved == "auto" else resolved
-    if backend not in ("stencil", "pallas", "pallas_dd"):
-        raise ValueError(
-            f"masked solver backends: auto|stencil|pallas|pallas_dd, got {backend!r}"
-        )
-    return backend
-
-
 def make_distributed_cg_masked(
     cfg_local: ProblemConfig,
     mesh: Mesh,
@@ -581,7 +239,6 @@ def make_distributed_cg_masked(
     max_iter: int,
     tolerance: float = 0.0,
     axis: Axis = Z_AXIS,
-    backend: str = "auto",
 ):
     """Distributed stencil CG for a global nz that does NOT divide the mesh.
 
@@ -595,85 +252,12 @@ def make_distributed_cg_masked(
     M A M restricted to real rows IS the true global operator — and with
     b = x0 = 0 on padding, the padded residuals are identically zero, so the
     CG trajectory equals the unpadded problem's exactly.
-
-    backend="pallas" (auto on TPU, round-2 missing #3) runs the same masked
-    operator around the overlapped pallas-v2 halo SpMV: the z-plane mask is
-    two cheap XLA elementwise multiplies fused around the kernel, so
-    remainder points in the strong-scaling sweep keep kernel speed instead
-    of dropping to the XLA tier.
     """
     op_local = local_operator(cfg_local)
     nz_l = cfg_local.nz
     plane = cfg_local.nx * cfg_local.ny
     if nz_l * axis_size(mesh, axis) < nz_global:
         raise ValueError("local nz too small to cover the global domain")
-    backend = masked_backend(cfg_local, backend)
-
-    if backend in ("pallas", "pallas_dd"):
-        from hpccg_tpu.ops.pallas.stencil_v2 import (
-            pad_plane3,
-            padded_dims,
-            unpad_plane3,
-        )
-        from hpccg_tpu.parallel.halo import (
-            stencil_matvec_halo_pallas_v2_overlap,
-        )
-
-        mdd = backend == "pallas_dd"
-        nzp, _, _ = padded_dims(op_local, cfg_local.dtype)
-
-        @jax.jit
-        @partial(
-            jax.shard_map,
-            mesh=mesh,
-            in_specs=(P(axis), P(axis)),
-            out_specs=_result_specs(P(axis)),
-            check_vma=False,
-        )
-        def solve_pallas(b, x0):
-            idx = jax.lax.axis_index(axis)
-            # plane mask in the padded layout; tile-pad planes (>= nz_l) are
-            # zeroed by the kernel's own valid mask either way
-            m3 = (
-                (jnp.arange(nzp) + idx * nz_l) < nz_global
-            ).astype(b.dtype)[:, None, None]
-
-            def matvec(u):
-                um = u * m3
-                y = stencil_matvec_halo_pallas_v2_overlap(
-                    op_local, um, axis, dd=mdd
-                )
-                return y * m3
-
-            def matvec_pap(u):
-                # p stays masked through the iteration (b/x0 masked, matvec
-                # output masked), so um . (A um) == um . (M A um): the
-                # kernel's fused partial is already the masked p.Ap
-                um = u * m3
-                y, pap = stencil_matvec_halo_pallas_v2_overlap(
-                    op_local, um, axis, with_pap=True, dd=mdd
-                )
-                return y * m3, pap
-
-            res = cg_solve(
-                matvec,
-                pad_plane3(op_local, b),
-                pad_plane3(op_local, x0),
-                max_iter=max_iter,
-                tolerance=tolerance,
-                dot=lambda u, w: ddot(u, w, axis_name=axis),
-                matvec_pap=matvec_pap,
-                pap_reduce=lambda s: jax.lax.psum(s, axis),
-            )
-            return CGResult(
-                x=unpad_plane3(op_local, res.x),
-                niters=res.niters,
-                normr=res.normr,
-                rtrans=res.rtrans,
-                trace=res.trace,
-            )
-
-        return solve_pallas
 
     @jax.jit
     @partial(
@@ -760,352 +344,47 @@ def generate_problem_sharded_masked(
     )
 
 
-def make_distributed_gell_cg(
-    mesh: Mesh,
-    *,
-    max_iter: int,
-    tolerance: float = 0.0,
-    axis: Axis = Z_AXIS,
-    method: str = "cg",
-    replace_every: int = 0,
-):
-    """Distributed CG for scattered-narrow-band explicit matrices: rows
-    block-sharded, each shard running the windowed gather-ELL Pallas kernel
-    with the bandwidth-wide boundary strips ppermuted into its window
-    padding (closing round-2 missing #1 — the reference runs this class
-    distributed at memory speed, exchange_externals.cpp:51-131 +
-    HPC_sparsemv.cpp:68-87; the all-gather ELL fallback is ~100x slower).
-
-    Returns solve(A, b, x0) with A an assembled EllMatrix/GellMatrix (rows
-    must divide the mesh — pad with ``hpccg_tpu.io.pad_problem_rows``) or a
-    ready GellShards. f32 matrices ride the plain gather kernel; f64 ride
-    the double-float (hi, lo) gather kernel per shard with f64 halos and
-    corrections (the O(bandwidth)-sized f64 pieces cost nothing)."""
-    from hpccg_tpu.ops.pallas.gell_kernel import (
-        GellShards,
-        prepare_gell_shards,
-        spmv_gell_shard,
-        spmv_gell_shard_dd,
-    )
-
-    ndev = axis_size(mesh, axis)
-    run = _method_runner(method, axis, replace_every)
-    # jitted solves memoized on the shards' static layout: jax.jit caches
-    # per FUNCTION OBJECT, so defining the closure fresh on every call
-    # would retrace (and re-lower) inside the caller's timed region
-    _jit_cache: dict = _BoundedCache()
-
-    def solve(A, b, x0):
-        shards = (
-            A if isinstance(A, GellShards) else prepare_gell_shards(A, ndev)
-        )
-        if shards.ndev != ndev:
-            raise ValueError(
-                f"GellShards prepared for {shards.ndev} shards, mesh has {ndev}"
-            )
-        L, bw_lo, bw_hi = shards.L, shards.bw_lo, shards.bw_hi
-        fwd = [(i, i + 1) for i in range(ndev - 1)]
-        bwd = [(i + 1, i) for i in range(ndev - 1)]
-        vec_sh = NamedSharding(mesh, P(axis))
-        b = jax.device_put(b, vec_sh)
-        x0 = jax.device_put(x0, vec_sh)
-        mat_sh = NamedSharding(mesh, P(axis))
-        vals4 = jax.device_put(shards.vals4, mat_sh)
-        li4 = jax.device_put(shards.li4, mat_sh)
-        corr = jax.device_put(
-            (shards.cl_idx, shards.cl_val, shards.ch_idx, shards.ch_val),
-            mat_sh,
-        )
-        dd = shards.vals4lo is not None
-        vals4lo = (
-            jax.device_put(shards.vals4lo, mat_sh) if dd else jnp.zeros((ndev,))
-        )
-        kw = dict(
-            L=L,
-            width=shards.width,
-            k_chunks=shards.k_chunks,
-            pbl=shards.pbl,
-            slot_bounds=shards.slot_bounds,
-        )
-        jit_key = (L, bw_lo, bw_hi, dd, method, replace_every, tuple(sorted(kw.items())))
-        cached = _jit_cache.get(jit_key)
-        if cached is not None:
-            return cached(vals4, vals4lo, li4, corr, b, x0)
-
-        @jax.jit
-        @partial(
-            jax.shard_map,
-            mesh=mesh,
-            in_specs=(P(axis), P(axis), P(axis), (P(axis),) * 4, P(axis), P(axis)),
-            out_specs=_result_specs(P(axis)),
-            check_vma=False,
-        )
-        def _solve(v4, v4lo, l4, corr_l, b_l, x0_l):
-            cli, clv, chi, chv = (a[0] for a in corr_l)
-
-            def matvec(v):
-                lo = (
-                    jax.lax.ppermute(v[L - bw_lo :], axis, fwd)
-                    if bw_lo
-                    else None
-                )
-                hi = jax.lax.ppermute(v[:bw_hi], axis, bwd) if bw_hi else None
-                # HALO/COMPUTE OVERLAP: the gather kernel runs on a zero
-                # halo (boundary-crossing slots read exact zeros from the
-                # window padding), so it carries no ppermute dependency;
-                # the exchanged strips land as tiny scatter-add corrections
-                if dd:
-                    y = spmv_gell_shard_dd(v4[0], v4lo[0], l4[0], v, **kw)
-                else:
-                    y = spmv_gell_shard(v4[0], l4[0], v, None, None, bw_lo=bw_lo, **kw)
-                if bw_lo:
-                    y = y.at[cli[0]].add(clv.astype(y.dtype) * lo[cli[1]])
-                if bw_hi:
-                    y = y.at[chi[0]].add(chv.astype(y.dtype) * hi[chi[1]])
-                return y
-
-            return run(matvec, b_l, x0_l, max_iter=max_iter, tolerance=tolerance)
-
-        _jit_cache[jit_key] = _solve
-        return _solve(vals4, vals4lo, li4, corr, b, x0)
-
-    return solve
-
-
-def make_distributed_stack_cg(
-    mesh: Mesh,
-    *,
-    max_iter: int,
-    tolerance: float = 0.0,
-    axis: Axis = Z_AXIS,
-    method: str = "cg",
-    replace_every: int = 0,
-):
-    """Distributed CG for the WIDE-scatter class: rows block-sharded, each
-    shard running the strip-bucketed gather-stack kernel over its tiles on
-    an all-gathered x.
-
-    Wide scatter has no neighbor-halo structure (entries reach
-    O(bandwidth) ~ n columns), so the comm plan is the general gather —
-    the reference's gather-list path (make_local_matrix.cpp) degenerating
-    to everyone-needs-everything. Unlike the all-gather ELL fallback
-    (jnp.take, measured ~0.14 Gnnz/s) the per-shard compute here is the
-    lane-gather stack kernel: the all_gather streams n*itemsize bytes per
-    iteration at ICI rates while the kernel cost divides by ndev.
-    f64 matrices ride the double-float strip kernel per shard.
-
-    Returns solve(A, b, x0) with A a prepared GellStackMatrix whose rows
-    split into whole 1024-row tiles per shard (io.pad_problem_rows to a
-    ndev*1024 multiple first)."""
-    from hpccg_tpu.ops.pallas.gell_stack import (
-        GellStackMatrix,
-        spmv_gell_stack_shard,
-        stack_shard_geometry,
-    )
-
-    ndev = axis_size(mesh, axis)
-    run = _method_runner(method, axis, replace_every)
-    _jit_cache: dict = _BoundedCache()
-
-    def solve(A, b, x0):
-        if not isinstance(A, GellStackMatrix):
-            raise ValueError(
-                "pass a prepared GellStackMatrix (auto_structure / "
-                "prepare_gell_stack)"
-            )
-        T_l, xw_chunks = stack_shard_geometry(A, ndev)
-        dd = A.vals3lo is not None
-        wtot = A.wtot
-        vec_sh = NamedSharding(mesh, P(axis))
-        mat_sh = NamedSharding(mesh, P(axis))
-        b = jax.device_put(b, vec_sh)
-        x0 = jax.device_put(x0, vec_sh)
-        shard_shape = (ndev, T_l, wtot, 8, 128)
-        v5 = jax.device_put(A.vals3.reshape(shard_shape), mat_sh)
-        l5 = jax.device_put(A.li3.reshape(shard_shape), mat_sh)
-        v5lo = (
-            jax.device_put(A.vals3lo.reshape(shard_shape), mat_sh)
-            if dd
-            else jnp.zeros((ndev,))
-        )
-        kw = dict(
-            strips=A.strips,
-            pbl=A.pbl,
-            xp_chunks=A.xp_chunks,
-            xw_chunks=xw_chunks,
-        )
-        jit_key = (T_l, wtot, dd, A.strips, A.pbl, A.xp_chunks, method, replace_every)
-        cached = _jit_cache.get(jit_key)
-        if cached is not None:
-            return cached(v5, v5lo, l5, b, x0)
-
-        @jax.jit
-        @partial(
-            jax.shard_map,
-            mesh=mesh,
-            in_specs=(P(axis), P(axis), P(axis), P(axis), P(axis)),
-            out_specs=_result_specs(P(axis)),
-            check_vma=False,
-        )
-        def _solve(v5_, v5lo_, l5_, b_l, x0_l):
-            r = jax.lax.axis_index(axis)
-
-            def matvec(v):
-                xg = jax.lax.all_gather(v, axis, tiled=True)
-                return spmv_gell_stack_shard(
-                    v5_[0],
-                    l5_[0],
-                    xg,
-                    r,
-                    vals3lo=v5lo_[0] if dd else None,
-                    **kw,
-                )
-
-            return run(matvec, b_l, x0_l, max_iter=max_iter, tolerance=tolerance)
-
-        _jit_cache[jit_key] = _solve
-        return _solve(v5, v5lo, l5, b, x0)
-
-    return solve
-
-
-def make_distributed_dynwin_cg(
-    mesh: Mesh,
-    *,
-    max_iter: int,
-    tolerance: float = 0.0,
-    axis: Axis = Z_AXIS,
-    method: str = "cg",
-    replace_every: int = 0,
-):
-    """Distributed CG for the wide-scatter class on the DYNAMIC-WINDOW tier
-    (round 5): rows block-sharded, each shard running the per-(tile, slot)
-    SMEM-window gather kernel over its tiles on an all-gathered x.
-
-    Same comm plan as make_distributed_stack_cg (wide scatter has no
-    neighbor-halo structure — one all_gather per matvec); the per-shard
-    kernel is the lower-inflation dynwin gather. Each shard's woff table is
-    rebased onto its own tight x window (dynwin_shard_geometry), so the
-    kernel's VMEM-resident slice shrinks with the shard count. f64 rides
-    the double-float kernel per shard.
-
-    Returns solve(A, b, x0) with A a prepared GellDynwinMatrix whose rows
-    split into whole 1024-row tiles per shard (io.pad_problem_rows to a
-    ndev*1024 multiple first)."""
-    from hpccg_tpu.ops.pallas.gell_dynwin import (
-        GellDynwinMatrix,
-        dynwin_shard_arrays,
-        spmv_gell_dynwin_shard,
-    )
-
-    ndev = axis_size(mesh, axis)
-    run = _method_runner(method, axis, replace_every)
-    _jit_cache: dict = _BoundedCache()
-
-    def solve(A, b, x0):
-        if not isinstance(A, GellDynwinMatrix):
-            raise ValueError(
-                "pass a prepared GellDynwinMatrix (auto_structure / "
-                "prepare_gell_dynwin)"
-            )
-        T_l, xw_chunks, xp_pad, woff_local, base_np = dynwin_shard_arrays(A, ndev)
-        dd = A.vals4lo is not None
-        W = A.W
-        vec_sh = NamedSharding(mesh, P(axis))
-        mat_sh = NamedSharding(mesh, P(axis))
-        b = jax.device_put(b, vec_sh)
-        x0 = jax.device_put(x0, vec_sh)
-        shard_shape = (ndev, T_l, W, 8, 128)
-        v6 = jax.device_put(A.vals4.reshape(shard_shape), mat_sh)
-        l6 = jax.device_put(A.li4.reshape(shard_shape), mat_sh)
-        v6lo = (
-            jax.device_put(A.vals4lo.reshape(shard_shape), mat_sh)
-            if dd
-            else jnp.zeros((ndev,))
-        )
-        # per-shard window-local offset table + the shard's window base
-        woff_l = jax.device_put(jnp.asarray(woff_local), mat_sh)
-        base2 = jax.device_put(jnp.asarray(base_np), mat_sh)
-        kw = dict(K=A.K, pbl=A.pbl, xp_chunks=xp_pad, xw_chunks=xw_chunks)
-        jit_key = (T_l, W, dd, A.K, A.pbl, xp_pad, xw_chunks, method, replace_every)
-        cached = _jit_cache.get(jit_key)
-        if cached is not None:
-            return cached(v6, v6lo, l6, woff_l, base2, b, x0)
-
-        @jax.jit
-        @partial(
-            jax.shard_map,
-            mesh=mesh,
-            in_specs=(P(axis),) * 5 + (P(axis), P(axis)),
-            out_specs=_result_specs(P(axis)),
-            check_vma=False,
-        )
-        def _solve(v6_, v6lo_, l6_, woff_, base_, b_l, x0_l):
-            def matvec(v):
-                xg = jax.lax.all_gather(v, axis, tiled=True)
-                return spmv_gell_dynwin_shard(
-                    v6_[0],
-                    l6_[0],
-                    woff_[0],
-                    xg,
-                    base_[0, 0],
-                    vals4lo=v6lo_[0] if dd else None,
-                    **kw,
-                )
-
-            return run(matvec, b_l, x0_l, max_iter=max_iter, tolerance=tolerance)
-
-        _jit_cache[jit_key] = _solve
-        return _solve(v6, v6lo, l6, woff_l, base2, b, x0)
-
-    return solve
-
-
 def dia_halo_plan(A, L: int):
-    """(ok, tier, reason): can this DiaMatrix ride the ppermute banded-halo
-    path on L-row shards, and on which per-shard kernel tier — "pallas"
-    (f32 blocked-DIA kernel), "dd" (f64 double-f32 kernel), or "unroll"
-    (XLA slice sweep, small diagonal counts).
+    """(ok, reason): can this DiaMatrix ride the ppermute banded-halo path
+    on L-row shards?
 
     The single source of truth for the viability predicate — the CLI's
     fallback decision and make_distributed_dia_cg's errors both call this,
     so they cannot drift (a drift would turn the CLI's graceful all-gather
     fallback into an uncaught solver ValueError)."""
-    from hpccg_tpu.ops.pallas.dia_kernel import (
-        dia_dd_supported,
-        dia_pallas_supported,
-    )
+    from hpccg_tpu.reorder import MAX_DIAGS
 
     offs = tuple(int(o) for o in A.offsets)
-    # many-diagonal shards need a Pallas kernel tier (halo strips written
-    # into its bandwidth padding): blocked-DIA for f32, double-f32 for f64
-    # past the XLA unroll cap. The unrolled slice path (one op per
-    # diagonal) covers small counts, capped where compile time blows up.
-    tier = "unroll"
-    if len(offs) > 128 and dia_pallas_supported(offs, L, A.dtype):
-        tier = "pallas"
-    elif (
-        len(offs) > 256
-        and jnp.dtype(A.dtype).itemsize == 8
-        and jax.default_backend() == "tpu"
-        and dia_dd_supported(offs, L)
-    ):
-        # interpret-mode dd off-chip is orders slower than the all-gather
-        # fallback, so the plan only picks it on the real TPU
-        tier = "dd"
-    if len(offs) > 256 and tier == "unroll":
-        return False, tier, (
+    # the per-shard sweep unrolls one slice per diagonal at trace time
+    if len(offs) > MAX_DIAGS:
+        return False, (
             f"{len(offs)} diagonals exceed the distributed DIA unroll cap "
-            "and no Pallas kernel tier supports this shard/dtype"
+            f"({MAX_DIAGS})"
         )
     bw_lo = max(0, -min(offs)) if offs else 0
     bw_hi = max(0, max(offs)) if offs else 0
     if bw_lo > L or bw_hi > L:
-        return False, tier, (
+        return False, (
             f"bandwidth ({bw_lo}/{bw_hi}) exceeds the {L}-row shard: "
             "neighbor halo insufficient"
         )
-    return True, tier, ""
+    return True, ""
+
+
+def _dia_shard_matvec(offs, L: int, bw_lo: int, bw_hi: int):
+    """Zero-halo interior sweep of one L-row DIA shard: y = sum_d data[d] *
+    v[row + off_d], with rows reaching past the shard reading zeros."""
+
+    def matvec(data_l, v):
+        x_ext = jnp.pad(v, (bw_lo, bw_hi))
+        y = jnp.zeros((L,), v.dtype)
+        for d, off in enumerate(offs):
+            y = y + data_l[d] * jax.lax.slice_in_dim(
+                x_ext, bw_lo + off, bw_lo + off + L
+            )
+        return y
+
+    return matvec
 
 
 def make_distributed_dia_cg(
@@ -1133,12 +412,11 @@ def make_distributed_dia_cg(
     (pad with ``hpccg_tpu.io.pad_problem_rows``) and its bandwidth must fit
     one shard (else fall back to the all-gather ELL path).
 
-    HALO/COMPUTE OVERLAP (round-2 next #6): the main SpMV runs with a ZERO
-    halo — correct everywhere except the first bw_lo and last bw_hi rows —
-    so it carries no data dependency on the ppermutes; the exchanged strips
-    land as two tiny boundary corrections afterwards (XLA's latency-hiding
-    scheduler is then free to fly the exchange during the interior kernel,
-    the same structure as stencil_matvec_halo_pallas_v2_overlap).
+    HALO/COMPUTE OVERLAP: the interior sweep runs with a ZERO halo — correct
+    everywhere except the first bw_lo and last bw_hi rows — so it carries no
+    data dependency on the ppermutes; the exchanged strips land as two tiny
+    boundary corrections afterwards (XLA's latency-hiding scheduler is then
+    free to fly the exchange during the interior sweep).
     """
     import numpy as np
 
@@ -1146,9 +424,9 @@ def make_distributed_dia_cg(
 
     ndev = axis_size(mesh, axis)
     run = _method_runner(method, axis, replace_every)
-    # jitted solves memoized on (tier, offsets, L, dtype): jax.jit caches
-    # per FUNCTION OBJECT, so a fresh closure per call would retrace inside
-    # the caller's timed region (cli.py times the post-warmup call)
+    # jitted solves memoized on (offsets, L, dtype): jax.jit caches per
+    # FUNCTION OBJECT, so a fresh closure per call would retrace inside the
+    # caller's timed region (cli.py times the post-warmup call)
     _jit_cache: dict = _BoundedCache()
 
     def solve(A: DiaMatrix, b, x0):
@@ -1162,10 +440,9 @@ def make_distributed_dia_cg(
             )
         L = n // ndev
         offs = tuple(int(o) for o in A.offsets)
-        ok, tier, reason = dia_halo_plan(A, L)
+        ok, reason = dia_halo_plan(A, L)
         if not ok:
             raise ValueError(f"{reason} — use make_distributed_ell_cg")
-        use_pallas = tier == "pallas"
         bw_lo = max(0, -min(offs)) if offs else 0
         bw_hi = max(0, max(offs)) if offs else 0
         fwd = [(i, i + 1) for i in range(ndev - 1)]
@@ -1173,11 +450,16 @@ def make_distributed_dia_cg(
         vec_sh = NamedSharding(mesh, P(axis))
         b = jax.device_put(b, vec_sh)
         x0 = jax.device_put(x0, vec_sh)
+        data = jax.device_put(A.data, NamedSharding(mesh, P(None, axis)))
 
-        ndiag = len(offs)
+        jit_key = (offs, L, str(jnp.dtype(A.dtype)), method, replace_every)
+        cached = _jit_cache.get(jit_key)
+        if cached is not None:
+            return cached(data, b, x0)
+
         # static gather maps for the boundary corrections: row i of the low
         # strip reads hl[i + off + bw_lo] with hl = [halo_lo | zeros] (zeros
-        # where the position was already covered by the zero-halo kernel);
+        # where the position was already covered by the zero-halo sweep);
         # row L-bw_hi+t of the high strip reads hh[t + off + bw_lo] with
         # hh = [zeros | halo_hi]
         idx_lo = (
@@ -1190,126 +472,7 @@ def make_distributed_dia_cg(
             if bw_hi
             else None
         )
-
-        def _corrections(y, strip_lo, strip_hi, lo, hi):
-            """Add the halo strips' contributions to the boundary rows.
-            O(ndiag * bw) work against the kernel's O(ndiag * L)."""
-            if bw_lo:
-                hl = jnp.concatenate([lo, jnp.zeros((bw_lo + bw_hi,), y.dtype)])
-                y = y.at[:bw_lo].add(
-                    jnp.sum(strip_lo.astype(y.dtype) * hl[idx_lo], axis=0)
-                )
-            if bw_hi:
-                hh = jnp.concatenate([jnp.zeros((bw_lo + bw_hi,), y.dtype), hi])
-                y = y.at[L - bw_hi :].add(
-                    jnp.sum(strip_hi.astype(y.dtype) * hh[idx_hi], axis=0)
-                )
-            return y
-
-        def _exchange(v):
-            lo = jax.lax.ppermute(v[L - bw_lo :], axis, fwd) if bw_lo else None
-            hi = jax.lax.ppermute(v[:bw_hi], axis, bwd) if bw_hi else None
-            return lo, hi
-
-        if tier == "dd":
-            # f64 wide band: per-shard double-f32 kernel (round-2 next #5),
-            # same zero-halo + boundary-correction overlap structure
-            from hpccg_tpu.ops.pallas.dia_kernel import (
-                prepare_dia_dd_shards,
-                spmv_dia_dd_prepared,
-            )
-
-            hi4, lo4 = prepare_dia_dd_shards(A, ndev)
-            hi4 = jax.device_put(hi4, NamedSharding(mesh, P(axis)))
-            lo4 = jax.device_put(lo4, NamedSharding(mesh, P(axis)))
-
-            jit_key = ("dd", offs, L, method, replace_every)
-            cached = _jit_cache.get(jit_key)
-            if cached is not None:
-                return cached(hi4, lo4, b, x0)
-
-            @jax.jit
-            @partial(
-                jax.shard_map,
-                mesh=mesh,
-                in_specs=(P(axis), P(axis), P(axis), P(axis)),
-                out_specs=_result_specs(P(axis)),
-                check_vma=False,
-            )
-            def _solve_dd(dh, dl, b_l, x0_l):
-                fh = dh[0].reshape(dh[0].shape[0], -1)
-                fl = dl[0].reshape(dl[0].shape[0], -1)
-                dt = b_l.dtype
-                strip_lo = (
-                    fh[:ndiag, :bw_lo].astype(dt) + fl[:ndiag, :bw_lo].astype(dt)
-                    if bw_lo
-                    else None
-                )
-                strip_hi = (
-                    fh[:ndiag, L - bw_hi : L].astype(dt)
-                    + fl[:ndiag, L - bw_hi : L].astype(dt)
-                    if bw_hi
-                    else None
-                )
-
-                def matvec(v):
-                    lo, hi = _exchange(v)
-                    y = spmv_dia_dd_prepared(offs, dh[0], dl[0], v, L, None, None)
-                    return _corrections(y, strip_lo, strip_hi, lo, hi)
-
-                return run(matvec, b_l, x0_l, max_iter=max_iter, tolerance=tolerance)
-
-            _jit_cache[jit_key] = _solve_dd
-            return _solve_dd(hi4, lo4, b, x0)
-
-        if use_pallas:
-            from hpccg_tpu.ops.pallas.dia_kernel import (
-                prepare_dia_shards,
-                spmv_dia_prepared,
-            )
-
-            data2s = jax.device_put(
-                prepare_dia_shards(A, ndev), NamedSharding(mesh, P(axis))
-            )
-
-            jit_key = ("pallas", offs, L, method, replace_every)
-            cached = _jit_cache.get(jit_key)
-            if cached is not None:
-                return cached(data2s, b, x0)
-
-            @jax.jit
-            @partial(
-                jax.shard_map,
-                mesh=mesh,
-                in_specs=(P(axis), P(axis), P(axis)),
-                out_specs=_result_specs(P(axis)),
-                check_vma=False,
-            )
-            def _solve_pallas(d2, b_l, x0_l):
-                # boundary strips of the diagonal data, recovered from the
-                # kernel layout (tiny slices; d2[d].reshape flattens the
-                # (nrows_pad, LANE) row blocks back to column order)
-                flat = d2[0].reshape(d2[0].shape[0], -1)
-                strip_lo = flat[:ndiag, :bw_lo] if bw_lo else None
-                strip_hi = flat[:ndiag, L - bw_hi : L] if bw_hi else None
-
-                def matvec(v):
-                    lo, hi = _exchange(v)
-                    # zero-halo kernel: no data dependency on the ppermutes
-                    y = spmv_dia_prepared(offs, d2[0], v, L, None, None)
-                    return _corrections(y, strip_lo, strip_hi, lo, hi)
-
-                return run(matvec, b_l, x0_l, max_iter=max_iter, tolerance=tolerance)
-
-            _jit_cache[jit_key] = _solve_pallas
-            return _solve_pallas(data2s, b, x0)
-
-        data = jax.device_put(A.data, NamedSharding(mesh, P(None, axis)))
-
-        jit_key = ("unroll", offs, L, str(jnp.dtype(A.dtype)), method, replace_every)
-        cached = _jit_cache.get(jit_key)
-        if cached is not None:
-            return cached(data, b, x0)
+        interior = _dia_shard_matvec(offs, L, bw_lo, bw_hi)
 
         @jax.jit
         @partial(
@@ -1323,16 +486,17 @@ def make_distributed_dia_cg(
             strip_hi = data_l[:, L - bw_hi :] if bw_hi else None
 
             def matvec(v):
-                lo, hi = _exchange(v)
-                # interior sweep over a zero-extended LOCAL v only — the
-                # unrolled slices carry no ppermute dependency either
-                x_ext = jnp.pad(v, (bw_lo, bw_hi))
-                y = jnp.zeros((L,), v.dtype)
-                for d, off in enumerate(offs):
-                    y = y + data_l[d] * jax.lax.slice_in_dim(
-                        x_ext, bw_lo + off, bw_lo + off + L
-                    )
-                return _corrections(y, strip_lo, strip_hi, lo, hi)
+                lo = jax.lax.ppermute(v[L - bw_lo :], axis, fwd) if bw_lo else None
+                hi = jax.lax.ppermute(v[:bw_hi], axis, bwd) if bw_hi else None
+                y = interior(data_l, v)
+                # O(ndiag * bw) corrections against the O(ndiag * L) sweep
+                if bw_lo:
+                    hl = jnp.concatenate([lo, jnp.zeros((bw_lo + bw_hi,), y.dtype)])
+                    y = y.at[:bw_lo].add(jnp.sum(strip_lo * hl[idx_lo], axis=0))
+                if bw_hi:
+                    hh = jnp.concatenate([jnp.zeros((bw_lo + bw_hi,), y.dtype), hi])
+                    y = y.at[L - bw_hi :].add(jnp.sum(strip_hi * hh[idx_hi], axis=0))
+                return y
 
             return run(matvec, b_l, x0_l, max_iter=max_iter, tolerance=tolerance)
 
@@ -1368,346 +532,46 @@ def shard_problem(prob: Problem, mesh: Mesh, *, axis: Axis = Z_AXIS) -> Problem:
     )
 
 
-def collective_dia_supported(A, ndev: int, max_iter: int = 512):
-    """(ok, reason) for the collective DIA whole-solve kernel — the single
-    shared viability predicate (CLI fallback + make_collective_dia_cg, like
-    dia_halo_plan for the streaming tier). max_iter sizes the in-kernel
-    trace buffer (part of the VMEM budget)."""
-    from hpccg_tpu.ops.pallas.collective_kernel import (
-        LANE,
-        fits_collective_dia_vmem,
-    )
-
-    if jnp.dtype(A.dtype).itemsize != 4:
-        return False, (
-            "the collective DIA kernel is f32-only (no Mosaic f64); use "
-            "make_distributed_dia_cg (its dd tier covers f64)"
-        )
-    n = A.local_nrow
-    if n % (ndev * LANE):
-        return False, (
-            f"{n} rows are not a multiple of ndev*128 = {ndev * LANE} "
-            "(the RDMA strips are whole 128-element rows); pad with "
-            "hpccg_tpu.io.pad_problem_rows(prob, ndev * 128)"
-        )
-    L = n // ndev
-    offs = tuple(int(o) for o in A.offsets)
-    bw_lo = max(0, -min(offs)) if offs else 0
-    bw_hi = max(0, max(offs)) if offs else 0
-    if max(bw_lo, bw_hi) > L:
-        return False, (
-            f"bandwidth ({bw_lo}/{bw_hi}) exceeds the {L}-row shard: "
-            "neighbor strips insufficient — use make_distributed_ell_cg"
-        )
-    if len(offs) > 128:
-        return False, (
-            f"{len(offs)} diagonals: the collective kernel unrolls one "
-            "slice+rotate per offset — use make_distributed_dia_cg"
-        )
-    if not fits_collective_dia_vmem(offs, L, A.dtype, max_iter=max_iter):
-        return False, (
-            "the collective DIA kernel pins the shard's diagonal data "
-            f"and solve vectors in VMEM; {len(offs)} diagonals x {L} "
-            "rows/shard does not fit — use make_distributed_dia_cg "
-            "(streaming halo)"
-        )
-    return True, "ok"
-
-
-def make_collective_dia_cg(
-    mesh: Mesh,
-    *,
-    max_iter: int,
-    tolerance: float = 0.0,
-    axis: Axis = Z_AXIS,
-    method: str = "cg1",
-):
-    """Collective whole-solve CG for a banded explicit matrix: the entire
-    multi-chip solve is ONE Pallas call per shard, with the band-strip halo
-    as in-kernel ICI RDMA and the per-iteration scalar allreduce in-kernel —
-    zero XLA dispatch anywhere in the loop. The loaded-matrix analog of
-    backend='collective' for generated problems (same allreduce machinery
-    and parity double-buffering; reference spec HPC_sparsemv.cpp:68-87 +
-    exchange_externals.cpp:51-131). method="cg1" fuses the two
-    MPI_Allreduces of HPCCG.cpp:367,381 into one single-reduction round;
-    method="cg" runs the reference recurrence with both in-kernel
-    allreduces.
-
-    Constraints (ValueError otherwise, with the fallback named):
-    - f32 data (Mosaic has no f64; use make_distributed_dia_cg's dd tier);
-    - rows % (ndev * 128) == 0 — the RDMA strips are whole 128-element rows
-      (pad with ``hpccg_tpu.io.pad_problem_rows(prob, ndev * 128)``);
-    - bandwidth <= one shard (neighbor-only strips);
-    - diagonal data + 5 guarded vectors fit the per-shard VMEM budget
-      (``fits_collective_dia_vmem``) and ndiag <= 128 (the apply unrolls
-      one slice+rotate per offset at trace time).
-
-    Like the stencil collective kernels: multi-chip behavior is validated on
-    the virtual CPU mesh through the full TPU interpreter (+ race detector
-    in tests); real-pod performance is a stated hypothesis with one chip.
-    """
-    import numpy as np
-
-    import weakref
-
-    from hpccg_tpu.operators import DiaMatrix
-    from hpccg_tpu.ops.pallas.collective_kernel import (
-        LANE,
-        cg_collective_dia_padded,
-    )
-
-    ndev = axis_size(mesh, axis)
-    # memoized per matrix layout / data buffer: fresh closures would
-    # retrace per call, and the shard scatter + upload would re-run
-    # (cli.py times the post-warmup call)
-    _jit_cache: dict = _BoundedCache()
-    _prep_cache: dict = _BoundedCache()
-
-    def solve(A: DiaMatrix, b, x0):
-        if not isinstance(A, DiaMatrix):
-            raise TypeError("make_collective_dia_cg needs a DiaMatrix")
-        ok, reason = collective_dia_supported(A, ndev, max_iter=max_iter)
-        if not ok:
-            raise ValueError(reason)
-        n = A.local_nrow
-        L = n // ndev
-        offs = tuple(int(o) for o in A.offsets)
-        R = L // LANE
-        sh = NamedSharding(mesh, P(axis))
-        pk = id(A.data)
-        hit = _prep_cache.get(pk)
-        if hit is not None and hit[0]() is A.data:
-            data4 = hit[1]
-        else:
-            data = np.asarray(A.data)
-            data4 = np.zeros((ndev, len(offs), R, LANE), data.dtype)
-            for r in range(ndev):
-                data4[r] = data[:, r * L : (r + 1) * L].reshape(
-                    len(offs), R, LANE
-                )
-            data4 = jax.device_put(jnp.asarray(data4), sh)
-            _prep_cache[pk] = (weakref.ref(A.data), data4)
-        b2 = jax.device_put(jnp.asarray(b).reshape(ndev * R, LANE), sh)
-        x02 = jax.device_put(jnp.asarray(x0).reshape(ndev * R, LANE), sh)
-
-        jit_key = (offs, R, method)
-        cached = _jit_cache.get(jit_key)
-        if cached is not None:
-            return cached(data4, b2, x02)
-
-        @jax.jit
-        @partial(
-            jax.shard_map,
-            mesh=mesh,
-            in_specs=(P(axis), P(axis), P(axis)),
-            out_specs=_result_specs(P(axis)),
-            check_vma=False,
-        )
-        def _solve(d4, b_l, x0_l):
-            x2, trace, stats = cg_collective_dia_padded(
-                offs,
-                d4[0],
-                b_l,
-                x0_l,
-                ndev=ndev,
-                axis=axis,
-                max_iter=max_iter,
-                tolerance=tolerance,
-                method=method,
-            )
-            return CGResult(
-                x=x2.reshape(-1),
-                niters=stats[0, 2].astype(jnp.int32),
-                normr=stats[0, 0],
-                rtrans=stats[0, 1],
-                trace=trace[:, 0],
-            )
-
-        _jit_cache[jit_key] = _solve
-        return _solve(data4, b2, x02)
-
-    return solve
-
-
 def make_distributed_spmv_bench(mesh: Mesh, A, *, axis: Axis = Z_AXIS):
     """(make_loop, tier) for slope-timing the distributed file-mode SpMV.
 
     Feeds the CLI's Time Summary SPARSEMV row for file matrices at
-    --mesh > 1 (round-3 VERDICT #6: the reference prints real kernel rows
-    in file mode too, main.cpp:266-298). The loop times the PER-SHARD
-    kernel exactly as the reference's TICK/TOCK brackets HPC_sparsemv —
-    the halo exchange is a separate cost there as well (times[5],
-    HPCCG.cpp:394) — so the dia/gell loops run the same zero-halo kernels
-    the solvers run; the all-gather ELL loop keeps its all_gather (for
-    that path the gather IS the matvec structure).
+    --mesh > 1 (the reference prints real kernel rows in file mode too,
+    main.cpp:266-298). The loop times the PER-SHARD kernel exactly as the
+    reference's TICK/TOCK brackets HPC_sparsemv — the halo exchange is a
+    separate cost there as well (times[5], HPCCG.cpp:394) — so the DIA loop
+    runs the same zero-halo sweep the solver runs; the all-gather ELL loop
+    keeps its all_gather (for that path the gather IS the matvec
+    structure).
 
-    ``A``: a GellDynwinMatrix or GellStackMatrix (wide-scatter tiers,
-    all-gathered x), GellShards (windowed gather tier), DiaMatrix (banded
-    halo tiers — also the closest standalone kernel for the collective
-    whole-solve backend), or assembled EllMatrix (all-gather fallback).
-    make_loop(k) returns a callable of one P(axis)-shardable global
-    vector running k chained rescaled matvecs; pass to
-    utils.timing.time_loop_slope. Raises ValueError when the matrix
-    cannot ride any distributed kernel tier.
+    ``A``: a DiaMatrix (banded halo path) or assembled EllMatrix
+    (all-gather path). make_loop(k) returns a callable of one
+    P(axis)-shardable global vector running k chained rescaled matvecs;
+    pass to utils.timing.time_loop_slope. Raises ValueError when the matrix
+    cannot ride the distributed DIA path.
     """
     from hpccg_tpu.operators import DiaMatrix
-    from hpccg_tpu.ops.pallas.gell_kernel import (
-        GellShards,
-        spmv_gell_shard,
-        spmv_gell_shard_dd,
-    )
-    from hpccg_tpu.ops.pallas.gell_stack import (
-        GellStackMatrix,
-        spmv_gell_stack_shard,
-        stack_shard_geometry,
-    )
 
-    from hpccg_tpu.ops.pallas.gell_dynwin import (
-        GellDynwinMatrix,
-        dynwin_shard_arrays,
-        spmv_gell_dynwin_shard,
-    )
-
-    ndev = axis_size(mesh, axis)
-    sh = NamedSharding(mesh, P(axis))
-
-    if isinstance(A, GellDynwinMatrix):
-        # wide-scatter dynamic-window tier: per-shard SMEM-window gather on
-        # an all-gathered x (the gather IS the matvec structure)
-        T_l, xw_chunks, xp_pad, woff_local, base_np = dynwin_shard_arrays(A, ndev)
-        dd = A.vals4lo is not None
-        shard_shape = (ndev, T_l, A.W, 8, 128)
-        kw = dict(K=A.K, pbl=A.pbl, xp_chunks=xp_pad, xw_chunks=xw_chunks)
-        woff_l = jax.device_put(jnp.asarray(woff_local), sh)
-        base2 = jax.device_put(jnp.asarray(base_np), sh)
-        mats0 = (A.vals4, A.vals4lo, A.li4) if dd else (A.vals4, A.li4)
-        leaves = tuple(
-            jax.device_put(a.reshape(shard_shape), sh) for a in mats0
-        ) + (woff_l, base2)
-        specs = (P(axis),) * len(leaves)
-
-        def shard_matvec(mats, v):
-            xg = jax.lax.all_gather(v, axis, tiled=True)
-            if dd:
-                v6, v6lo, l6, wf, sb = mats
-                return spmv_gell_dynwin_shard(
-                    v6[0], l6[0], wf[0], xg, sb[0, 0], vals4lo=v6lo[0], **kw
-                )
-            v6, l6, wf, sb = mats
-            return spmv_gell_dynwin_shard(v6[0], l6[0], wf[0], xg, sb[0, 0], **kw)
-
-        tier = "dynwin-dd-allgather" if dd else "dynwin-allgather"
-    elif isinstance(A, GellStackMatrix):
-        # wide-scatter stack tier: per-shard strip kernel on an
-        # all-gathered x (the gather IS the matvec structure, like the
-        # ell-allgather row — it stays inside the timed loop)
-        T_l, xw_chunks = stack_shard_geometry(A, ndev)
-        dd = A.vals3lo is not None
-        shard_shape = (ndev, T_l, A.wtot, 8, 128)
-        kw = dict(
-            strips=A.strips, pbl=A.pbl, xp_chunks=A.xp_chunks,
-            xw_chunks=xw_chunks,
-        )
-        leaves = tuple(
-            jax.device_put(a.reshape(shard_shape), sh)
-            for a in ((A.vals3, A.vals3lo, A.li3) if dd else (A.vals3, A.li3))
-        )
-        specs = (P(axis),) * len(leaves)
-
-        def shard_matvec(mats, v):
-            xg = jax.lax.all_gather(v, axis, tiled=True)
-            r = jax.lax.axis_index(axis)
-            if dd:
-                v5, v5lo, l5 = mats
-                return spmv_gell_stack_shard(
-                    v5[0], l5[0], xg, r, vals3lo=v5lo[0], **kw
-                )
-            v5, l5 = mats
-            return spmv_gell_stack_shard(v5[0], l5[0], xg, r, **kw)
-
-        tier = "stack-dd-allgather" if dd else "stack-allgather"
-    elif isinstance(A, GellShards):
-        dd = A.vals4lo is not None
-        kw = dict(
-            L=A.L, width=A.width, k_chunks=A.k_chunks, pbl=A.pbl,
-            slot_bounds=A.slot_bounds,
-        )
-        bw_lo = A.bw_lo
-        if dd:
-            leaves = (
-                jax.device_put(A.vals4, sh),
-                jax.device_put(A.vals4lo, sh),
-                jax.device_put(A.li4, sh),
-            )
-
-            def shard_matvec(mats, v):
-                v4, v4lo, l4 = mats
-                return spmv_gell_shard_dd(v4[0], v4lo[0], l4[0], v, **kw)
-
-        else:
-            leaves = (jax.device_put(A.vals4, sh), jax.device_put(A.li4, sh))
-
-            def shard_matvec(mats, v):
-                v4, l4 = mats
-                return spmv_gell_shard(
-                    v4[0], l4[0], v, None, None, bw_lo=bw_lo, **kw
-                )
-
-        specs = (P(axis),) * len(leaves)
-        tier = "gell-dd" if dd else "gell"
-    elif isinstance(A, DiaMatrix):
+    if isinstance(A, DiaMatrix):
         n = A.local_nrow
+        ndev = axis_size(mesh, axis)
         if n % ndev:
             raise ValueError(f"{n} rows do not divide {ndev} shards")
         L = n // ndev
-        offs = tuple(int(o) for o in A.offsets)
-        ok, tier0, reason = dia_halo_plan(A, L)
+        ok, reason = dia_halo_plan(A, L)
         if not ok:
             raise ValueError(reason)
-        if tier0 == "dd":
-            from hpccg_tpu.ops.pallas.dia_kernel import (
-                prepare_dia_dd_shards,
-                spmv_dia_dd_prepared,
-            )
+        offs = tuple(int(o) for o in A.offsets)
+        bw_lo = max(0, -min(offs)) if offs else 0
+        bw_hi = max(0, max(offs)) if offs else 0
+        leaves = (jax.device_put(A.data, NamedSharding(mesh, P(None, axis))),)
+        specs = (P(None, axis),)
+        interior = _dia_shard_matvec(offs, L, bw_lo, bw_hi)
 
-            hi4, lo4 = prepare_dia_dd_shards(A, ndev)
-            leaves = (jax.device_put(hi4, sh), jax.device_put(lo4, sh))
-            specs = (P(axis), P(axis))
+        def shard_matvec(mats, v):
+            return interior(mats[0], v)
 
-            def shard_matvec(mats, v):
-                dh, dl = mats
-                return spmv_dia_dd_prepared(offs, dh[0], dl[0], v, L, None, None)
-
-            tier = "dia-dd"
-        elif tier0 == "pallas":
-            from hpccg_tpu.ops.pallas.dia_kernel import (
-                prepare_dia_shards,
-                spmv_dia_prepared,
-            )
-
-            leaves = (jax.device_put(prepare_dia_shards(A, ndev), sh),)
-            specs = (P(axis),)
-
-            def shard_matvec(mats, v):
-                return spmv_dia_prepared(offs, mats[0][0], v, L, None, None)
-
-            tier = "dia-pallas"
-        else:
-            bw_lo = max(0, -min(offs)) if offs else 0
-            bw_hi = max(0, max(offs)) if offs else 0
-            leaves = (jax.device_put(A.data, NamedSharding(mesh, P(None, axis))),)
-            specs = (P(None, axis),)
-
-            def shard_matvec(mats, v):
-                x_ext = jnp.pad(v, (bw_lo, bw_hi))
-                y = jnp.zeros((L,), v.dtype)
-                for d, off in enumerate(offs):
-                    y = y + mats[0][d] * jax.lax.slice_in_dim(
-                        x_ext, bw_lo + off, bw_lo + off + L
-                    )
-                return y
-
-            tier = "dia-unroll"
+        tier = "dia-halo"
     elif isinstance(A, EllMatrix):
         if A.start_row != 0:
             raise ValueError("pass the assembled global EllMatrix")
@@ -1730,15 +594,13 @@ def make_distributed_spmv_bench(mesh: Mesh, A, *, axis: Axis = Z_AXIS):
             mesh=mesh,
             in_specs=specs + (P(axis),),
             out_specs=P(axis),
-            check_vma=False,
         )
         def loop(*args):
             *mats, v = args
 
             def body(i, c):
                 # the 1/54 rescale keeps the chained carry bounded for the
-                # generated stencil class; for general matrices the carry
-                # may overflow to inf, which times identically on TPU
+                # generated stencil class
                 y = shard_matvec(mats, c) * jnp.asarray(1.0 / 54.0, v.dtype)
                 return y.astype(c.dtype)
 

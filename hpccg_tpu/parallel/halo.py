@@ -3,8 +3,9 @@
 The reference posts MPI_Irecv/MPI_Send per neighbor and packs a gather-list
 send buffer before every SpMV. For the z-stacked stencil problem each rank
 exchanges exactly its top/bottom nx*ny boundary plane with <=2 neighbors
-(SURVEY.md §3.4) — on TPU that is one ``jax.lax.ppermute`` per direction over
-the 'z' mesh axis, riding ICI. Non-periodic global boundaries fall out of
+(SURVEY.md §3.4) — here that is one ``jax.lax.ppermute`` per direction over
+the 'z' mesh axis, which XLA lowers to the device interconnect (NCCL over
+NVLink between GPUs). Non-periodic global boundaries fall out of
 ppermute semantics for free: destinations with no source receive zeros, which
 is exactly the stencil's boundary clipping.
 
@@ -100,158 +101,3 @@ def stencil_matvec_halo(
     y = (DIAG_VALUE - OFFDIAG_VALUE) * u + OFFDIAG_VALUE * s
     return y.reshape(-1)
 
-
-def stencil_matvec_halo_pallas(
-    op: StencilOperator,
-    u_pad: jax.Array,
-    masks: jax.Array,
-    axis_name: str = "z",
-    donor=None,
-) -> jax.Array:
-    """Distributed A @ x in the padded-plane layout with the Pallas kernel.
-
-    ppermutes the boundary planes (rows of the (nzp, M) shard; row nz-1 up,
-    row 0 down) and feeds them to the kernel's external-halo input. ``donor``
-    is a dead buffer the output steals (see spmv_padded).
-    """
-    from hpccg_tpu.ops.pallas.stencil_kernel import spmv_padded
-
-    n = jax.lax.axis_size(axis_name)
-    nz = op.nz
-    if n == 1:
-        halo = None
-    else:
-        below = jax.lax.ppermute(
-            u_pad[nz - 1], axis_name, [(i, i + 1) for i in range(n - 1)]
-        )
-        above = jax.lax.ppermute(
-            u_pad[0], axis_name, [(i + 1, i) for i in range(n - 1)]
-        )
-        halo = jnp.stack([below, above])
-    return spmv_padded(op, u_pad, masks, halo, donor)
-
-
-def _halo_planes_v2(op: StencilOperator, u_pad: jax.Array, axis_name: str):
-    """ppermute the shard's boundary z-planes (v2 layout): our last real
-    plane goes up, our first goes down; None on a single-device mesh (true
-    domain boundary -> the kernels substitute zeros)."""
-    n = jax.lax.axis_size(axis_name)
-    nz = op.nz
-    if n == 1:
-        return None
-    below = jax.lax.ppermute(
-        u_pad[nz - 1], axis_name, [(i, i + 1) for i in range(n - 1)]
-    )
-    above = jax.lax.ppermute(
-        u_pad[0], axis_name, [(i + 1, i) for i in range(n - 1)]
-    )
-    return jnp.stack([below, above])
-
-
-def stencil_matvec_halo_pallas_v2(
-    op: StencilOperator,
-    u_pad: jax.Array,
-    axis_name: str = "z",
-) -> jax.Array:
-    """Distributed A @ x in the v2 (nzp, ny_pad, nx_pad) layout.
-
-    Same ppermute pattern: our last real z-plane (u_pad[nz-1], a 2-D
-    (ny_pad, nx_pad) plane) goes up, our first plane goes down, and the
-    received planes feed the kernel's external-halo input."""
-    from hpccg_tpu.ops.pallas.stencil_v2 import spmv_padded_v2
-
-    return spmv_padded_v2(op, u_pad, _halo_planes_v2(op, u_pad, axis_name))
-
-
-def stencil_matvec_halo_pallas_v2_pap(
-    op: StencilOperator,
-    u_pad: jax.Array,
-    axis_name: str = "z",
-):
-    """Like stencil_matvec_halo_pallas_v2 but returns (Ap, local p.Ap
-    partial) from the fused kernel (caller psums the partial)."""
-    from hpccg_tpu.ops.pallas.stencil_v2 import spmv_padded_v2_pap
-
-    return spmv_padded_v2_pap(op, u_pad, _halo_planes_v2(op, u_pad, axis_name))
-
-
-def _plane_xy_sum(plane: jax.Array, op: StencilOperator) -> jax.Array:
-    """The halo plane's contribution to its adjacent boundary plane:
-    boundary-clipped xy neighbor sum for 27-pt (the z-neighbor plane
-    contributes its full 3x3 xy-neighborhood), identity for 7-pt (face
-    neighbor only). plane is (ny_pad, nx_pad) with zero padding."""
-    if op.stencil == Stencil.S27:
-        u = plane[None]  # _axis_sum3 pads/slices -> exact clipping
-        return _axis_sum3(_axis_sum3(u, 2), 1)[0]
-    return plane
-
-
-def stencil_matvec_halo_pallas_v2_overlap(
-    op: StencilOperator,
-    u_pad: jax.Array,
-    axis_name: str = "z",
-    with_pap: bool = False,
-    dd: bool = False,
-):
-    """Distributed A @ x with HALO/COMPUTE OVERLAP (the BASELINE requirement:
-    ppermute "overlapped with interior SpMV compute").
-
-    The plain pallas path feeds the ppermuted planes into the kernel, making
-    the kernel data-dependent on the exchange. Here the kernel runs with a
-    ZERO external halo — correct everywhere except the two boundary z-planes
-    — while the ppermute carries no dependency on it; the halo lands as two
-    tiny plane corrections afterwards (y[0] += OFFDIAG * xy3(below),
-    y[nz-1] += OFFDIAG * xy3(above)), so XLA's scheduler is free to run the
-    exchange concurrently with the interior kernel.
-
-    with_pap=True also returns the local p.Ap partial (kernel partial +
-    boundary-correction terms).
-
-    dd=True routes f64 shards through the double-float (two-f32) kernel
-    (round 3); the boundary corrections below are dtype-generic and run in
-    XLA f64 — exact double-double plane arithmetic on O(ny*nx) data."""
-    from hpccg_tpu.ops.pallas.stencil_v2 import (
-        spmv_padded_v2,
-        spmv_padded_v2_dd,
-        spmv_padded_v2_dd_pap,
-        spmv_padded_v2_pap,
-    )
-
-    nz = op.nz
-    if dd and with_pap:
-        y, pap = spmv_padded_v2_dd_pap(op, u_pad, None)
-    elif dd:
-        y = spmv_padded_v2_dd(op, u_pad, None)
-    elif with_pap:
-        y, pap = spmv_padded_v2_pap(op, u_pad, None)
-    else:
-        y = spmv_padded_v2(op, u_pad, None)
-
-    n = jax.lax.axis_size(axis_name)
-    if n == 1:
-        return (y, pap) if with_pap else y
-
-    below = jax.lax.ppermute(
-        u_pad[nz - 1], axis_name, [(i, i + 1) for i in range(n - 1)]
-    )
-    above = jax.lax.ppermute(
-        u_pad[0], axis_name, [(i + 1, i) for i in range(n - 1)]
-    )
-    # corrections are zero-padded like everything else (the ppermuted planes
-    # come from padded arrays, and _plane_xy_sum's clipping keeps pad lanes
-    # from leaking into real ones only via real data — mask to be exact)
-    ny_pad, nx_pad = u_pad.shape[1], u_pad.shape[2]
-    iy = jnp.arange(ny_pad)[:, None] < op.ny
-    ix = jnp.arange(nx_pad)[None, :] < op.nx
-    valid = (iy & ix).astype(u_pad.dtype)
-    corr_lo = OFFDIAG_VALUE * _plane_xy_sum(below, op) * valid
-    corr_hi = OFFDIAG_VALUE * _plane_xy_sum(above, op) * valid
-    y = y.at[0].add(corr_lo).at[nz - 1].add(corr_hi)
-    if with_pap:
-        pap = (
-            pap
-            + jnp.vdot(u_pad[0], corr_lo)
-            + jnp.vdot(u_pad[nz - 1], corr_hi)
-        )
-        return y, pap
-    return y

@@ -1,18 +1,20 @@
 """Mesh construction: hosts x chips -> the row-partition axis.
 
 The reference's distributed model is a 1-D block row partition with z-stacked
-domains (generate_matrix.cpp:225-229, README.md:53-63). Two TPU mappings:
+domains (generate_matrix.cpp:225-229, README.md:53-63). Two mappings:
 
 - :func:`make_mesh`: a 1-D 'z' mesh. Devices are ordered host-major
   *explicitly* (sorted by (process_index, device id), not by trusting the
   jax.devices() enumeration convention), so consecutive z-shards land on the
-  same host and only slice-boundary halos cross DCN.
+  same host and only host-boundary halos cross the network between hosts.
 - :func:`make_mesh2d`: a 2-D ('host', 'z') mesh with the host tier as its
   own named axis. Vectors shard over the *flattened* ('host', 'z') product
   (row order = host-major, identical layout to the 1-D mesh), but the mesh
-  topology is explicit: XLA lowers the within-host pairs of a halo ppermute
-  to ICI transfers and exactly the hosts-1 slice-boundary pairs to DCN —
-  asserted by tests/test_mesh2d.py's jaxpr/perm inspection.
+  topology is explicit: the within-host pairs of a halo ppermute stay on
+  the host's GPU interconnect (NVLink) and exactly hosts-1 boundary pairs
+  cross hosts — asserted by tests/test_mesh2d.py's jaxpr/perm inspection.
+  Within one host every GPU reaches every other at the same NVLink rate, so
+  the mesh shape there follows the algorithm alone.
 
 Every solver in hpccg_tpu.parallel accepts ``axis`` as a single name ('z')
 or the tuple ('host', 'z'); psum/ppermute/axis_size all take the tuple as
@@ -66,9 +68,10 @@ def make_mesh2d(
     """2-D (host, z) mesh with devices grouped by host explicitly.
 
     With no arguments, groups all devices by their actual process_index
-    (real multi-host pods); pass hosts/chips_per_host to impose a shape
+    (real multi-host runs); pass hosts/chips_per_host to impose a shape
     (virtual CPU meshes, or a subdivided slice). Every host must contribute
-    the same chip count — ragged pods are rejected, not silently rearranged.
+    the same device count — ragged hosts are rejected, not silently
+    rearranged.
     """
     if devices is None:
         devices = _host_major(jax.devices())

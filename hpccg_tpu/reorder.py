@@ -1,32 +1,25 @@
-"""Bandwidth-reducing reordering — the TPU answer to unstructured matrices.
+"""Bandwidth-reducing reordering and the explicit-matrix format chooser.
 
 The reference's make_local_matrix (make_local_matrix.cpp:58-610) spends its
 setup phase relabeling column indices into a layout its kernels like; this
-module is the same one-time host-side investment aimed at TPU kernels: TPUs
-have no hardware gather, so an explicit matrix is only fast when its nonzeros
-lie on few distinct diagonals (operators.DiaMatrix / the blocked-DIA Pallas
-kernel). Many "unstructured" matrices are a hidden banded matrix composed
-with a permutation — and CG is basis-invariant, so the *solve* can run
-entirely in the reordered basis:
+module is the same one-time host-side investment. An explicit matrix whose
+nonzeros lie on few distinct diagonals runs gather-free as a DiaMatrix; any
+other runs the ELL gather, whose cost depends on how local its column
+indices are. Many "unstructured" matrices are a hidden banded matrix
+composed with a permutation — and CG is basis-invariant, so the *solve* can
+run entirely in the reordered basis:
 
     solve (P A P^T) y = P b   ==>   x = P^T y
 
 with the two vector permutations done once on the host (O(n), setup-time),
 never inside the iteration.
 
-``rcm_permutation`` computes the reverse Cuthill-McKee ordering (scipy's
-csgraph implementation, with a self-contained NumPy BFS fallback), and
-``auto_structure`` is the policy: direct DIA if already banded; RCM + DIA if
-reordering exposes a band; the windowed gather-ELL kernel for scattered
-narrow bands; and for wide scatter — e.g. a randomly permuted 3-D stencil,
-whose optimal bandwidth is Theta(n^(2/3)) and which round 3 could only run
-through the XLA take gather (~0.14 Gnnz/s) — the strip-bucketed gather
-STACK (round 4, ops/pallas/gell_stack.py) and the dynamic-window tier
-(round 5, ops/pallas/gell_dynwin.py, per-(tile, slot) SMEM window bases at
-~half the stack's slot inflation), whichever the shared cost model books
-faster. f64 wide scatter rides the tiers' double-float variants on TPU.
-Plain ELL remains the fallback for matrices storing explicit zeros (and
-f64 wide scatter off-chip).
+``rcm_permutation`` computes the reverse Cuthill-McKee ordering (native
+library, then scipy's csgraph, then a self-contained NumPy BFS), and
+``auto_structure`` is the policy: DIA (one XLA roll fusion) when its stored
+diagonal slots cost no more bytes than ELL's (value, index) pairs, in the
+loaded basis or after RCM; otherwise ELL gather, in whichever basis has the
+smaller bandwidth (better gather locality).
 """
 
 from __future__ import annotations
@@ -34,10 +27,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
-import jax.numpy as jnp
 import numpy as np
 
-from hpccg_tpu.operators import DiaMatrix, EllMatrix
+from hpccg_tpu.operators import EllMatrix
 
 
 def _rcm_numpy(indptr: np.ndarray, indices: np.ndarray, n: int) -> np.ndarray:
@@ -114,8 +106,7 @@ def permute_ell(A: EllMatrix, perm: np.ndarray) -> EllMatrix:
     valid = np.asarray(A.valid)[perm]
     new_cols = np.where(valid, inv[cols], 0).astype(np.int32)
     # host leaves on purpose: every consumer (bandwidth, to_dia,
-    # prepare_gell, auto_structure's candidate models) reads with
-    # np.asarray, and uploading here would force a full device round trip
+    # auto_structure's basis stats) reads with np.asarray, and uploading here would force a full device round trip
     # of a matrix that is usually about to be re-encoded anyway
     # (io._matrix_to_device puts the surviving representation on device)
     return EllMatrix(
@@ -139,7 +130,7 @@ def bandwidth(A: EllMatrix) -> int:
 class StructureReport:
     """What auto_structure decided and why (for logs/reports)."""
 
-    format: str  # "dia" | "gell" | "gstack" | "gdynwin" (each +"+rcm") | "ell"
+    format: str  # "dia" | "ell", each optionally +"+rcm"
     ndiag: Optional[int]
     bandwidth_before: int
     bandwidth_after: Optional[int]
@@ -147,275 +138,81 @@ class StructureReport:
     reason: str
 
 
-# Measured single-chip model rates (PERF.md round 2) used ONLY to choose
-# between representations — real performance comes from the benchmarks:
-# - blocked-DIA streams stored slots at ~180 Gslots/s, so its REAL-nnz rate
-#   divides by the slot inflation;
-# - windowed gather-ELL (i16 indices) fits t/nnz ~= 0.027 + 0.0014*K ns on
-#   v5e (measured K=10: 24.7 Gnnz/s, K=22: 17.6) — pipeline-bound at small
-#   windows, chunk-scan-bound at large ones.
-_DIA_SLOT_RATE = 180.0
+# The chooser compares bytes streamed per SpMV, not a fitted rate: DIA reads
+# every slot of every kept diagonal (ndiag * n values), ELL reads a value and
+# a 4-byte column index per padded slot (width * n) plus the gathered x. The
+# rule has not been measured against the two paths on the H200.
+MAX_DIAGS = 128  # the DIA matvec unrolls one roll per diagonal at trace time
 
 
-def _gell_chunks(bw_lo: int, bw_hi: int) -> int:
-    from hpccg_tpu.ops.pallas.gell_kernel import LANE, RT, _cdiv
+def dia_beats_ell(ndiag: int, width: int, itemsize: int) -> bool:
+    """True when a DiaMatrix streams no more bytes than the padded ELL.
 
-    return (RT + _cdiv(bw_lo, LANE) * LANE + _cdiv(bw_hi, LANE) * LANE) // LANE
-
-
-def _gell_rate(k_chunks: int) -> float:
-    return 1.0 / (0.027 + 0.0014 * k_chunks)
+    A byte count, not a timing: the rule is not measured on the H200."""
+    return ndiag <= MAX_DIAGS and ndiag * itemsize <= width * (itemsize + 4)
 
 
-def effective_dia_cap(max_diags: int, f64: bool, bw_lo: int, bw_hi: int, n: int) -> int:
-    """The diagonal-count cap DIA conversion must respect for this dtype.
-
-    Past ~256 diagonals the f64 XLA roll loop's compile time scales with
-    ndiag — cap there unless the TPU double-f32 DIA kernel covers the shape
-    (make_cg routes f64 > 256-diagonal DiaMatrix to it, round 3). Shared by
-    auto_structure and io.read_hpc_row_structured's --no-reorder branch so
-    the two paths cannot drift."""
-    if not f64:
-        return max_diags
-    import jax as _jax
-
-    from hpccg_tpu.ops.pallas.dia_kernel import dia_dd_supported
-
-    if _jax.default_backend() == "tpu" and dia_dd_supported((-bw_lo, bw_hi), n):
-        return max_diags
-    return min(max_diags, 256)
+def basis_stats(mat: EllMatrix):
+    """(ndiag, bandwidth, has_stored_zeros) from ONE to_coo pass."""
+    rows, cols, vals = mat.to_coo()
+    offs = cols.astype(np.int64) - rows.astype(np.int64)
+    bw = int(np.abs(offs).max()) if offs.size else 0
+    return int(np.unique(offs).size), bw, bool(np.any(vals == 0))
 
 
 def auto_structure(
-    A: EllMatrix,
-    *,
-    max_diags: int = 4096,
-    max_inflation: float = 64.0,
-    max_storage_bytes: int = 8 << 30,
-    allow_gell: bool = True,
+    A: EllMatrix, *, reorder: bool = True
 ) -> Tuple[object, Optional[np.ndarray], StructureReport]:
-    """Pick the fastest TPU representation for an explicit matrix.
+    """Pick the representation an explicit matrix solves in.
 
     Returns (operator, perm, report). perm is None when the matrix is used
     in its original ordering; otherwise the operator represents P A P^T and
     the caller must solve in the permuted basis (permute b once, unpermute
-    x once — see io.read_hpc_row).
+    x once — see io.read_hpc_row_structured). ``reorder=False`` keeps the
+    loaded order (no RCM).
 
-    ``max_inflation`` bounds stored-diagonal slots per true nonzero: DIA
-    streams every slot of every kept diagonal, so inflation is the slowdown
-    factor against the dense-diagonal ceiling — up to ~64x it still beats
-    the gather path by orders of magnitude.
+    DIA drops stored zeros, so a matrix holding explicit zero entries stays
+    in ELL (dumps and round trips would otherwise be lossy).
     """
     n = A.local_nrow
-    nnz = A.nnz
-    f64 = np.dtype(np.asarray(A.vals).dtype).itemsize == 8
+    nnz = max(A.nnz, 1)
+    itemsize = np.dtype(np.asarray(A.vals).dtype).itemsize
+    width = max(A.width, 1)
 
-    def candidates(mat: EllMatrix, tag: str):
-        """((rate_model_gnnz, kind, build_fn, detail) options, bandwidth)
-        for one basis. ONE to_coo pass; the winning representation is built
-        lazily (a rejected multi-GB DIA array is never materialized)."""
-        rows, cols, vals = mat.to_coo()
-        offs = cols.astype(np.int64) - rows.astype(np.int64)
-        bw_lo = max(0, int(-offs.min()) if offs.size else 0)
-        bw_hi = max(0, int(offs.max()) if offs.size else 0)
-        bw = max(bw_lo, bw_hi)
-        ndiag = int(np.unique(offs).size)
-        out = []
-        cap = effective_dia_cap(max_diags, f64, bw_lo, bw_hi, n)
-        storage = ndiag * n * np.dtype(np.asarray(mat.vals).dtype).itemsize
-        inflation = (ndiag * n) / max(nnz, 1)
-        # both compressed formats (DIA and gather-ELL) drop stored zeros,
-        # which would make dumps/round-trips lossy — exclude such matrices
-        # (cf. operators.EllMatrix.to_dia)
-        no_stored_zeros = not np.any(vals == 0)
-        dia_ok = (
-            ndiag <= cap
-            and inflation <= max_inflation
-            and storage <= max_storage_bytes
-            and no_stored_zeros
+    def dia_ok(ndiag):
+        return not zeros and dia_beats_ell(ndiag, width, itemsize)
+
+    ndiag0, bw0, zeros = basis_stats(A)
+    if dia_ok(ndiag0):
+        return A.to_dia(max_diags=MAX_DIAGS), None, StructureReport(
+            format="dia", ndiag=ndiag0, bandwidth_before=bw0,
+            bandwidth_after=bw0, inflation=ndiag0 * n / nnz,
+            reason=f"banded as loaded: {ndiag0} diagonals",
         )
-        if dia_ok:
-            out.append(
-                (
-                    _DIA_SLOT_RATE / max(inflation, 1.0),
-                    "dia" + tag,
-                    lambda mat=mat: mat.to_dia(max_diags=max_diags),
-                    (ndiag, inflation, None),
-                )
+    why = (
+        "matrix stores explicit zero entries, which DIA would drop"
+        if zeros
+        else f"{ndiag0} diagonals stream more bytes than ELL"
+    )
+    if reorder:
+        perm = rcm_permutation(A)
+        B = permute_ell(A, perm)
+        ndiag1, bw1, _ = basis_stats(B)
+        if dia_ok(ndiag1):
+            return B.to_dia(max_diags=MAX_DIAGS), perm, StructureReport(
+                format="dia+rcm", ndiag=ndiag1, bandwidth_before=bw0,
+                bandwidth_after=bw1, inflation=ndiag1 * n / nnz,
+                reason=f"RCM reduced bandwidth {bw0} -> {bw1}; "
+                f"{ndiag1} diagonals",
             )
-        k = _gell_chunks(bw_lo, bw_hi)
-        # f32 matrices ride the gather kernel anywhere; f64 ride the
-        # double-float gather kernel (spmv_gell_dd) on TPU only — the
-        # interpret-mode dd gather off-chip is slower than the exact
-        # XLA/ELL paths. Both dtypes distribute: the CLI re-shards a
-        # chosen GellMatrix via prepare_gell_shards at --mesh > 1 (f64
-        # shards carry (hi, lo) planes for the dd gather kernel).
-        from hpccg_tpu.ops.pallas.gell_kernel import gell_supported, prepare_gell
-
-        import jax as _jax
-
-        gell_dtype_ok = np.asarray(mat.vals).dtype.itemsize == 4 or (
-            f64 and _jax.default_backend() == "tpu"
-        )
-        if (
-            allow_gell
-            and gell_dtype_ok
-            and no_stored_zeros
-            and gell_supported(n, k, dd=f64)
-        ):
-
-            # the kernel streams every PADDED slot (width * n), so skewed
-            # row lengths inflate its cost exactly like DIA's empty slots
-            # (measured: a width-240 / 17-nnz-per-row matrix ran at 2.2
-            # real-Gnnz/s — the slot rate divided by ~14). The dd tier
-            # roughly doubles the per-slot VPU work (two gathers + the
-            # compensated products) and streams 10 vs 6 B/slot.
-            slot_inflation = (max(mat.width, 1) * n) / max(nnz, 1)
-            rate = _gell_rate(k) / max(slot_inflation, 1.0)
-            if f64:
-                rate *= 0.5
-            out.append(
-                (
-                    rate,
-                    "gell" + tag,
-                    lambda mat=mat: prepare_gell(mat),
-                    (None, None, k),
-                )
+        if bw1 < bw0:
+            return B, perm, StructureReport(
+                format="ell+rcm", ndiag=None, bandwidth_before=bw0,
+                bandwidth_after=bw1, inflation=None,
+                reason=f"{why}; ELL gather after RCM reduced bandwidth "
+                f"{bw0} -> {bw1}",
             )
-        # wide-scatter tier (round-4): strip-bucketed gather stack — the
-        # band is cut into chunk-aligned strips, each riding gell's lane
-        # gather at a strip-static window offset, so there is NO bandwidth
-        # cap (the class where the plain window overflows 32 chunks, e.g.
-        # a randomly permuted stencil after RCM). f64 rides the
-        # double-float strip kernel on TPU (stack_cost_model gates the
-        # backend and halves the rate); the model sweeps the strip width
-        # and books the best.
-        if allow_gell and no_stored_zeros:
-            from hpccg_tpu.ops.pallas.gell_kernel import _normalize_sorted
-            from hpccg_tpu.ops.pallas.gell_stack import (
-                prepare_gell_stack,
-                stack_cost_model,
-            )
-
-            # one per-row column sort serves all strip/window widths
-            norm = _normalize_sorted(mat)
-            best = None
-            for sc in (8, 16, 32, 64):
-                s_ok, s_rate, _wtot = stack_cost_model(
-                    mat, strip_chunks=sc, _norm=norm
-                )
-                if s_ok and (best is None or s_rate > best[1]):
-                    best = (sc, s_rate)
-            if best is not None:
-                sc, s_rate = best
-                out.append(
-                    (
-                        s_rate,
-                        "gstack" + tag,
-                        lambda mat=mat, sc=sc: prepare_gell_stack(
-                            mat, strip_chunks=sc
-                        ),
-                        (None, None, 8 + sc),  # per-strip window chunks
-                    )
-                )
-            # dynamic-window tier (round 5): per-(tile, slot) SMEM window
-            # bases cut the stack's strip-max inflation to the greedy bump
-            # overflow (64^3 permuted target: 2.06x vs 3.1x, measured 2.7x
-            # faster — exp/dynwin_probe.py). Same lane-gather inner loop,
-            # so the same fit prices both and the sweep is fair.
-            from hpccg_tpu.ops.pallas.gell_dynwin import (
-                dynwin_cost_model,
-                prepare_gell_dynwin,
-            )
-
-            best_d = None
-            carry: dict = {}
-            for dk in (16, 24):
-                d_ok, d_rate, _W = dynwin_cost_model(
-                    mat, K=dk, _norm=norm, _carry=carry
-                )
-                if d_ok and (best_d is None or d_rate > best_d[1]):
-                    best_d = (dk, d_rate)
-            if best_d is not None:
-                dk, d_rate = best_d
-                out.append(
-                    (
-                        d_rate,
-                        "gdynwin" + tag,
-                        # the model already ran the greedy for this K —
-                        # build from its assignment instead of re-running
-                        lambda mat=mat, dk=dk, a=carry.get(
-                            best_d[0]
-                        ): prepare_gell_dynwin(mat, K=dk, _assign=a),
-                        (None, None, dk),  # per-slot window chunks
-                    )
-                )
-        return out, bw, no_stored_zeros
-
-    cands0, bw0, zeros_ok0 = candidates(A, "")
-    cands = [(r, kind, build, d, None) for r, kind, build, d in cands0]
-    B = bw1 = None
-    # a direct DIA with negligible inflation (the banded-file fast path):
-    # take it immediately — skips the RCM work, and near-dense diagonals
-    # beat the gather window in practice regardless of the coarse models
-    direct = [c for c in cands if c[1] == "dia" and c[3][1] <= 4.0]
-    if direct:
-        rate, kind, build, (ndiag, inflation, _), _ = direct[0]
-        return build(), None, StructureReport(
-            format="dia",
-            ndiag=ndiag,
-            bandwidth_before=bw0,
-            bandwidth_after=bw0,
-            inflation=inflation,
-            reason=f"banded as loaded: {ndiag} diagonals",
-        )
-    perm_try = rcm_permutation(A)
-    B = permute_ell(A, perm_try)
-    cands1, bw1, _ = candidates(B, "+rcm")
-    cands += [(r, kind, build, d, perm_try) for r, kind, build, d in cands1]
-
-    if cands:
-        rate, kind, build, (ndiag, inflation, k), cperm = max(
-            cands, key=lambda c: c[0]
-        )
-        if kind.startswith("dia"):
-            detail = f"{ndiag} diagonals at {inflation:.1f}x slot inflation"
-        elif kind.startswith("gstack"):
-            detail = f"strip-bucketed gather, {k}-chunk strip windows"
-        elif kind.startswith("gdynwin"):
-            detail = f"dynamic-window gather, {k}-chunk per-slot windows"
-        else:
-            detail = f"{k}-chunk gather window"
-        if kind.endswith("+rcm"):
-            detail = f"RCM reduced bandwidth {bw0} -> {bw1}; " + detail
-        return build(), cperm, StructureReport(
-            format=kind,
-            ndiag=ndiag,
-            bandwidth_before=bw0,
-            bandwidth_after=bw1 if kind.endswith("+rcm") else bw0,
-            inflation=inflation,
-            reason=f"{detail} (model ~{rate:.0f} Gnnz/s)",
-        )
-
-    if not zeros_ok0:
-        reason = (
-            "matrix stores explicit zero entries, which the compressed "
-            "formats (DIA/gather-ELL) would drop — dumps and round trips "
-            "would be lossy; staying in ELL (slow gather path on TPU). "
-            "Strip the zeros to enable the fast formats"
-        )
-    else:
-        reason = (
-            f"no gather-free structure: bandwidth {bw0} -> {bw1} after RCM "
-            f"still exceeds every budget ({max_diags} diagonals / "
-            f"{max_inflation:.0f}x inflation / 32-chunk gather window); "
-            "staying in ELL (slow gather path on TPU)"
-        )
     return A, None, StructureReport(
-        format="ell",
-        ndiag=None,
-        bandwidth_before=bw0,
-        bandwidth_after=bw1,
-        inflation=None,
-        reason=reason,
+        format="ell", ndiag=None, bandwidth_before=bw0, bandwidth_after=None,
+        inflation=None, reason=f"{why}; ELL gather in the loaded order",
     )

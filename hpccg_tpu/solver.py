@@ -51,6 +51,10 @@ class CGResult:
     trace: jax.Array  # (max_iter,) residual-norm trajectory
 
 
+def _local_dot2(p1, p2):
+    return _ddot(*p1), _ddot(*p2)
+
+
 def cg_solve(
     matvec: Callable[[jax.Array], jax.Array],
     b: jax.Array,
@@ -59,27 +63,25 @@ def cg_solve(
     max_iter: int,
     tolerance: float = 0.0,
     dot: Optional[Callable[[jax.Array, jax.Array], jax.Array]] = None,
-    matvec_donor: Optional[Callable[[jax.Array, jax.Array], jax.Array]] = None,
-    matvec_pap: Optional[Callable] = None,
-    pap_reduce: Optional[Callable[[jax.Array], jax.Array]] = None,
+    direction: Optional[Callable] = None,
 ) -> CGResult:
     """Run CG. Jit-safe; call under jax.jit (or shard_map) with static
     max_iter/tolerance. ``dot`` defaults to the local dot product; pass a
     psum-reducing dot for distributed solves.
 
-    ``matvec_donor(p, dead_buf)``: optional variant that steals ``dead_buf``
-    (the previous Ap, unused past the r update) for its output — Pallas
-    kernels with aliased outputs stream ~2x faster on v5e.
-
-    ``matvec_pap(p) -> (Ap, local p.Ap)``: optional fused variant that
-    emits the p.Ap partial alongside Ap (saves the dot's re-read of both
-    vectors at HBM-resident sizes, ~13% per iteration at 256^3);
-    ``pap_reduce`` sums the partial across the mesh (identity if None).
+    ``direction(r, p, beta) -> (p_new, A p_new, p_new . A p_new)``: optional
+    fused form of the iteration's direction step (p = r + beta*p, the SpMV
+    and the p.Ap reduction) — the stencil kernel of ops/stencil_kernel.py.
+    The default composes the three from ``matvec`` and ``dot``.
     """
     if dot is None:
         dot = _ddot
-    if pap_reduce is None:
-        pap_reduce = lambda s: s  # noqa: E731
+    if direction is None:
+        def direction(r, p, beta):
+            p = r + beta * p
+            Ap = matvec(p)
+            return p, Ap, dot(p, Ap)
+
     dtype = b.dtype
     tol = jnp.asarray(tolerance, dtype)
 
@@ -102,33 +104,25 @@ def cg_solve(
     # recompute, by construction.
 
     def cond(carry):
-        k, x, r, p, Ap, rtrans, normr, trace = carry
+        k, x, r, p, rr_pair, normr, trace = carry
         return jnp.logical_and(k < max_iter, normr > tol)
 
     def body(carry):
-        k, x, r, p, Ap_dead, rr_pair, _, trace = carry
+        k, x, r, p, rr_pair, _, trace = carry
         rtrans, rtrans_old = rr_pair
         beta = jnp.where(k == 1, jnp.asarray(0.0, dtype), rtrans / rtrans_old)
-        p = r + beta * p
         normr = jnp.sqrt(rtrans)
         trace = trace.at[k].set(normr)
-        if matvec_pap is not None:
-            Ap, pap = matvec_pap(p)
-            alpha = rtrans / pap_reduce(pap)
-        else:
-            if matvec_donor is not None:
-                Ap = matvec_donor(p, Ap_dead)
-            else:
-                Ap = matvec(p)
-            alpha = rtrans / dot(p, Ap)
+        p, Ap, pap = direction(r, p, beta)
+        alpha = rtrans / pap
         x = x + alpha * p
         r = r - alpha * Ap
         rr_next = dot(r, r)  # fuses with the r-update (see note above)
-        return (k + 1, x, r, p, Ap, (rr_next, rtrans), normr, trace)
+        return (k + 1, x, r, p, (rr_next, rtrans), normr, trace)
 
     k0 = jnp.asarray(1, jnp.int32)
-    carry = (k0, x0, r, p, Ap, (rtrans, rtrans), normr0, trace0)
-    k, x, r, p, Ap, rr_pair, normr, trace = jax.lax.while_loop(cond, body, carry)
+    carry = (k0, x0, r, p, (rtrans, rtrans), normr0, trace0)
+    k, x, r, p, rr_pair, normr, trace = jax.lax.while_loop(cond, body, carry)
     # exit semantics: the reference leaves the loop with normr/rtrans as of
     # its last top-of-loop evaluation; rr_pair[1] is that value (rr_pair[0]
     # is one update newer — never consumed by a loop top)
@@ -177,8 +171,7 @@ def cg_solve_single_reduction(
     branch are fine under shard_map (replicated predicate).
     """
     if dot2 is None:
-        def dot2(p1, p2):
-            return jnp.vdot(*p1), jnp.vdot(*p2)
+        dot2 = _local_dot2
 
     dtype = b.dtype
     tol = jnp.asarray(tolerance, dtype)
@@ -257,8 +250,7 @@ def cg_solve_pipelined(
     the f32 recurrence flush like cg1's (see cg_solve_single_reduction).
     """
     if dot2 is None:
-        def dot2(p1, p2):
-            return jnp.vdot(*p1), jnp.vdot(*p2)
+        dot2 = _local_dot2
 
     dtype = b.dtype
     tol = jnp.asarray(tolerance, dtype)
@@ -311,150 +303,45 @@ def cg_solve_pipelined(
     )
 
 
-def cg_solve_fused(
-    op,
-    b_pad: jax.Array,
-    x0_pad: jax.Array,
-    masks: jax.Array,
-    *,
-    max_iter: int,
-    tolerance: float = 0.0,
-    psum: Optional[Callable[[jax.Array], jax.Array]] = None,
-    halo2_fn=None,
-    halo4_fn=None,
-) -> CGResult:
-    """CG with the two fused Pallas passes per iteration (ops/pallas/fused_cg):
-    identical recurrence to cg_solve, but p-update+SpMV+dot fuse into one
-    kernel and x/r updates + the next ddot into another — no standalone
-    ddot/waxpby passes remain.
+SOLVERS = {
+    "cg1": cg_solve_single_reduction,
+    "pipecg": cg_solve_pipelined,
+}
 
-    Operates in the padded-plane layout. psum reduces dot partials across the
-    mesh (distributed); halo2_fn(v)/halo4_fn(r, p) supply ppermuted boundary
-    planes (None = true domain boundary).
-    """
-    from hpccg_tpu.ops.pallas.fused_cg import fused_update_p_apply, fused_update_x_r
-    from hpccg_tpu.ops.pallas.stencil_kernel import spmv_padded
-
-    dtype = b_pad.dtype
-    tol = jnp.asarray(tolerance, dtype)
-    gsum = psum if psum is not None else (lambda s: s)
-
-    p = x0_pad
-    Ap = spmv_padded(op, p, masks, halo2_fn(p) if halo2_fn else None)
-    r = b_pad - Ap
-    rtrans = gsum(jnp.vdot(r, r))
-    normr0 = jnp.sqrt(rtrans)
-    trace0 = jnp.full((max(max_iter, 1),), jnp.nan, dtype).at[0].set(normr0)
-
-    def cond(c):
-        k, x, r, p, ap, rt_prev, rt_cur, normr, trace = c
-        return jnp.logical_and(k < max_iter, normr > tol)
-
-    def body(c):
-        k, x, r, p, ap_dead, rt_prev, rt_cur, _, trace = c
-        beta = jnp.where(k == 1, jnp.asarray(0.0, dtype), rt_cur / rt_prev)
-        normr = jnp.sqrt(rt_cur)
-        trace = trace.at[k].set(normr)
-        halo = halo4_fn(r, p) if halo4_fn else None
-        p2, ap, pap = fused_update_p_apply(op, r, p, beta, masks, halo, ap_dead)
-        alpha = rt_cur / gsum(pap)
-        x, r, rr = fused_update_x_r(x, r, p2, ap, alpha)
-        return (k + 1, x, r, p2, ap, rt_cur, gsum(rr), normr, trace)
-
-    k0 = jnp.asarray(1, jnp.int32)
-    carry = (k0, x0_pad, r, p, Ap, rtrans, rtrans, normr0, trace0)
-    k, x, r, p, ap, rt_prev, rt_cur, normr, trace = jax.lax.while_loop(cond, body, carry)
-    return CGResult(x=x, niters=k - 1, normr=normr, rtrans=rt_cur, trace=trace)
+BACKENDS = ("auto", "stencil", "triton")
 
 
 def resolve_backend(A, backend: str = "auto") -> str:
-    """Map backend="auto" to the fastest measured backend for this problem.
+    """Map backend="auto" to the SpMV path for this operator.
 
-    Measured on v5e (PERF.md): the whole-solve megakernel wins while the 5
-    solve vectors fit VMEM (f32 ~<=128^3 whole / 144^3 slab; bf16 slab to
-    ~200^3); the streaming whole-solve kernel (r/p pinned, x DMA-streamed)
-    wins while 2 vectors fit (f32 ~<=200^3: 207 us/iter vs 790 XLA / 1003
-    pallas; bf16 ~<=256^3: 366 vs 609 pallas-v2 at 256^3); the XLA stencil
-    path covers the remaining band up to ~10.5M rows where it keeps most
-    state VMEM-resident; the streaming pallas-v2 kernel wins once truly
-    HBM-resident (f32 256^3: 1259 vs 2311; bf16 past 256^3). f64 on TPU rides the double-float
-    (two-f32) stencil kernel, backend='pallas_dd' (Mosaic has no f64; XLA's
-    emulated f64 pays double-double per op of the 27-sum). On CPU
-    (tests/parity) auto stays on the XLA stencil path.
+    Generated stencil problems: "stencil" is the XLA stencil
+    (StencilOperator.matvec); "triton" is the fused direction kernel of
+    ops/stencil_kernel.py (p update + stencil + p.Ap in one pass). The auto
+    rule (stencil_kernel.auto_picks_kernel) follows the interleaved
+    end-to-end comparison on the card recorded in PERF.md. Explicit
+    matrices always use their own matvec (DIA roll fusion or ELL gather,
+    chosen by reorder.auto_structure), so every backend name maps to "auto"
+    there.
     """
     from hpccg_tpu.operators import StencilOperator
 
-    KNOWN = (
-        "auto", "stencil", "ell", "dia", "pallas", "pallas_v1",
-        "pallas_fused", "megakernel", "streamkernel", "collective",
-        "pallas_dd",
-    )
-    if backend not in KNOWN:
-        raise ValueError(f"unknown backend {backend!r} (choose from {KNOWN})")
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r} (choose from {BACKENDS})")
     if not isinstance(A, StencilOperator):
-        # explicit matrices (ELL/DIA) dispatch through spmv(); the
-        # whole-solve kernel names are stencil-only, so requesting one here
-        # falls back to the native dispatch with a warning rather than
-        # silently mislabeling the measurement
-        if backend not in ("auto", "stencil", "ell", "dia"):
+        if backend == "triton":
             import warnings
 
             warnings.warn(
                 f"backend={backend!r} applies to stencil operators only; "
-                f"{type(A).__name__} uses its native matvec dispatch",
-                stacklevel=3,
-            )
-        from hpccg_tpu.operators import EllMatrix
-
-        if (
-            isinstance(A, EllMatrix)
-            and jax.default_backend() == "tpu"
-            and A.local_nrow >= 100_000
-        ):
-            import warnings
-
-            warnings.warn(
-                f"ELL gather SpMV at {A.local_nrow} rows on TPU is orders of "
-                "magnitude off the memory roofline (no hardware gather); "
-                "convert with to_dia() or hpccg_tpu.auto_structure() "
-                "for a gather-free representation",
+                f"{type(A).__name__} uses its native matvec",
                 stacklevel=3,
             )
         return "auto"
     if backend != "auto":
         return backend
-    if jax.default_backend() != "tpu":
-        return "stencil"
-    if jnp.dtype(A.dtype).itemsize == 8:
-        # f64: the double-float (two-f32) stencil kernel — XLA's TPU f64 is
-        # software double-double applied to EVERY op of the 27-sum, the dd
-        # kernel captures the same accuracy with error-free f32 transforms
-        # (round-3, PERF.md)
-        return "pallas_dd"
-    if jnp.dtype(A.dtype).itemsize not in (2, 4):
-        return "stencil"
-    from hpccg_tpu.ops.pallas.megakernel import fits_vmem
-    from hpccg_tpu.ops.pallas.streamkernel import fits_stream_vmem
+    from hpccg_tpu.ops.stencil_kernel import auto_picks_kernel
 
-    if fits_vmem(A, A.dtype):
-        return "megakernel"
-    if fits_stream_vmem(A, A.dtype):
-        # the r/p-pinned streaming kernel: f32 reach ~200^3 (207 us/iter vs
-        # 790 XLA / 1003 pallas); bf16 state (round 5) halves the pinned
-        # footprint, extending the reach to 256^3 where it beats both the
-        # XLA stencil band (208^3: 272 vs 285 us/iter) and the pallas-v2
-        # HBM tier (256^3: 366 vs 609 us/iter)
-        return "streamkernel"
-    if A.local_nrow <= 10_500_000:
-        # XLA keeps most CG state effectively VMEM-resident up to ~10.5M
-        # rows and beats the streaming kernel there — measured for f32
-        # (40 MB/vector) AND bf16 (208^3: XLA 291 vs pallas 330 us/iter;
-        # the crossover is a row count, not a byte count, round 3)
-        return "stencil"
-    # truly HBM-resident: the one-pass pallas-v2 streaming tier (f32 256^3:
-    # 1259 vs 2311; bf16 256^3: 596 vs 791 us/iter — bf16 computes f32
-    # in-kernel with 2 B/element HBM traffic)
-    return "pallas"
+    return "triton" if auto_picks_kernel(A) else "stencil"
 
 
 def make_cg(
@@ -480,246 +367,20 @@ def make_cg(
     win; with neither, SolverConfig's defaults apply — max_iter=150,
     tolerance=0.0, the reference's fixed-work protocol).
 
-    backend="auto" picks the fastest backend for the problem size (see
-    resolve_backend). backend="pallas" (stencil operators only) runs the
-    whole CG loop in the TPU-native padded-plane layout with the one-pass
-    Pallas SpMV kernel; padding stays exactly zero through axpy/dot so the
-    iteration scalars are identical to the flat path. backend="megakernel"
-    runs the ENTIRE solve inside one Pallas call (VMEM-resident state).
+    backend="auto" picks the SpMV path (see resolve_backend); "triton" runs
+    the fused direction kernel in method="cg" (the one-reduction methods
+    apply the operator to r, not to a fresh direction, and keep the XLA
+    stencil).
     """
     from hpccg_tpu.config import SolverConfig
-    from hpccg_tpu.operators import StencilOperator
-    from hpccg_tpu.ops.spmv import spmv
 
     base = config if config is not None else SolverConfig()
     max_iter = base.max_iter if max_iter is None else max_iter
     tolerance = base.tolerance if tolerance is None else tolerance
 
     backend = resolve_backend(A, backend)
-
-    from hpccg_tpu.operators import DiaMatrix
-
-    if isinstance(A, DiaMatrix) and A.ndiag > 128 and jax.default_backend() == "tpu":
-        from hpccg_tpu.ops.pallas.dia_kernel import (
-            dia_dd_supported,
-            dia_pallas_supported,
-            prepare_dia,
-            prepare_dia_dd,
-        )
-
-        if dia_pallas_supported(A.offsets, A.local_nrow, A.dtype) and not isinstance(
-            A.data, jax.core.Tracer
-        ):
-            # block-pad the diagonal data into the kernel layout ONCE, here:
-            # left inside the jitted solve, the (GB-scale) pad is not
-            # reliably hoisted out of the CG loop (30 vs 179 Gslots/s
-            # measured at 257 diagonals x 1M rows)
-            A = prepare_dia(A)
-        elif (
-            jnp.dtype(A.dtype).itemsize == 8
-            and A.ndiag > 256
-            and dia_dd_supported(A.offsets, A.local_nrow)
-            and not isinstance(A.data, jax.core.Tracer)
-        ):
-            # f64 past the XLA unroll cap: the double-f32 compensated
-            # kernel (round-3) — f64-class accuracy (~1e-14 rel matvec) at
-            # f32 VPU speed, no Mosaic f64 needed
-            A = prepare_dia_dd(A)
-
-    if method in ("cg1", "pipecg"):
-        solver_fn = (
-            cg_solve_single_reduction if method == "cg1" else cg_solve_pipelined
-        )
-        if backend in ("megakernel", "streamkernel", "pallas_fused"):
-            # the whole-solve / fused kernels implement the standard
-            # recurrence only; say so instead of silently re-routing a
-            # benchmark to a kernel that never ran (cf. resolve_backend's
-            # non-stencil fallback warning)
-            import warnings
-
-            warnings.warn(
-                f"backend={backend!r} implements method='cg' only; "
-                f"method={method!r} runs on the per-iteration pallas-v2 "
-                "SpMV path instead",
-                stacklevel=2,
-            )
-            backend = "pallas"
-        # one-reduction variants ride the pallas-v2 layout or the XLA path
-        if backend in ("pallas", "pallas_dd") and isinstance(A, StencilOperator):
-            from hpccg_tpu.ops.pallas.stencil_v2 import (
-                pad_plane3,
-                spmv_padded_v2,
-                spmv_padded_v2_dd,
-                unpad_plane3,
-            )
-
-            mv = spmv_padded_v2_dd if backend == "pallas_dd" else spmv_padded_v2
-
-            def solve_1red_pallas(b, x0):
-                res = solver_fn(
-                    lambda v: mv(A, v),
-                    pad_plane3(A, b),
-                    pad_plane3(A, x0),
-                    max_iter=max_iter,
-                    tolerance=tolerance,
-                    replace_every=replace_every,
-                )
-                return CGResult(
-                    x=unpad_plane3(A, res.x),
-                    niters=res.niters,
-                    normr=res.normr,
-                    rtrans=res.rtrans,
-                    trace=res.trace,
-                )
-
-            return jax.jit(solve_1red_pallas)
-
-        def _solve_1red(A_, b, x0):
-            return solver_fn(
-                lambda v: spmv(A_, v, backend=backend if backend in ("auto", "stencil", "ell") else "auto"),
-                b,
-                x0,
-                max_iter=max_iter,
-                tolerance=tolerance,
-                replace_every=replace_every,
-            )
-
-        # explicit matrices enter as jit ARGUMENTS (see the cg branch below)
-        return partial(jax.jit(_solve_1red), A)
-    if method != "cg":
+    if method != "cg" and method not in SOLVERS:
         raise ValueError(f"unknown CG method {method!r}")
-
-    if backend == "pallas_fused" and isinstance(A, StencilOperator):
-        from hpccg_tpu.ops.pallas.stencil_kernel import (
-            pad_plane,
-            plane_masks,
-            unpad_plane,
-        )
-
-        def solve_fused(b, x0):
-            masks = jnp.asarray(plane_masks(A, b.dtype))
-            res = cg_solve_fused(
-                A,
-                pad_plane(A, b),
-                pad_plane(A, x0),
-                masks,
-                max_iter=max_iter,
-                tolerance=tolerance,
-            )
-            return CGResult(
-                x=unpad_plane(A, res.x),
-                niters=res.niters,
-                normr=res.normr,
-                rtrans=res.rtrans,
-                trace=res.trace,
-            )
-
-        return jax.jit(solve_fused)
-
-    if backend == "pallas" and isinstance(A, StencilOperator):
-        # v2 layout: z on the grid dim, y on sublanes, x on lanes — all
-        # neighbor shifts are lane-roll-by-1 or sublane slices (stencil_v2.py)
-        from hpccg_tpu.ops.pallas.stencil_v2 import (
-            pad_plane3,
-            spmv_padded_v2,
-            spmv_padded_v2_pap,
-            unpad_plane3,
-        )
-
-        def solve_pallas(b, x0):
-            res = cg_solve(
-                lambda v: spmv_padded_v2(A, v),
-                pad_plane3(A, b),
-                pad_plane3(A, x0),
-                max_iter=max_iter,
-                tolerance=tolerance,
-                matvec_pap=lambda v: spmv_padded_v2_pap(A, v),
-            )
-            return CGResult(
-                x=unpad_plane3(A, res.x),
-                niters=res.niters,
-                normr=res.normr,
-                rtrans=res.rtrans,
-                trace=res.trace,
-            )
-
-        return jax.jit(solve_pallas)
-
-    if backend == "pallas_dd" and isinstance(A, StencilOperator):
-        # f64 via the double-float (two-f32) stencil kernel: the 27-sum runs
-        # error-free f32 transforms in Pallas; the CG recurrence and
-        # axpy/dot stay XLA f64 (bandwidth-bound — emulation is cheap there)
-        from hpccg_tpu.ops.pallas.stencil_v2 import (
-            pad_plane3,
-            spmv_padded_v2_dd,
-            spmv_padded_v2_dd_pap,
-            unpad_plane3,
-        )
-
-        def solve_pallas_dd(b, x0):
-            res = cg_solve(
-                lambda v: spmv_padded_v2_dd(A, v),
-                pad_plane3(A, b),
-                pad_plane3(A, x0),
-                max_iter=max_iter,
-                tolerance=tolerance,
-                matvec_pap=lambda v: spmv_padded_v2_dd_pap(A, v),
-            )
-            return CGResult(
-                x=unpad_plane3(A, res.x),
-                niters=res.niters,
-                normr=res.normr,
-                rtrans=res.rtrans,
-                trace=res.trace,
-            )
-
-        return jax.jit(solve_pallas_dd)
-
-    if backend == "megakernel" and isinstance(A, StencilOperator):
-        from hpccg_tpu.ops.pallas.megakernel import cg_solve_mega
-
-        return jax.jit(
-            lambda b, x0: cg_solve_mega(
-                A, b, x0, max_iter=max_iter, tolerance=tolerance
-            )
-        )
-
-    if backend == "streamkernel" and isinstance(A, StencilOperator):
-        from hpccg_tpu.ops.pallas.streamkernel import cg_solve_stream
-
-        return jax.jit(
-            lambda b, x0: cg_solve_stream(
-                A, b, x0, max_iter=max_iter, tolerance=tolerance
-            )
-        )
-
-    if backend == "pallas_v1" and isinstance(A, StencilOperator):
-        from hpccg_tpu.ops.pallas.stencil_kernel import (
-            pad_plane,
-            plane_masks,
-            spmv_padded,
-            unpad_plane,
-        )
-
-        def solve_pallas_v1(b, x0):
-            masks = jnp.asarray(plane_masks(A, b.dtype))
-            res = cg_solve(
-                lambda v: spmv_padded(A, v, masks),
-                pad_plane(A, b),
-                pad_plane(A, x0),
-                max_iter=max_iter,
-                tolerance=tolerance,
-                matvec_donor=lambda v, dead: spmv_padded(A, v, masks, None, dead),
-            )
-            return CGResult(
-                x=unpad_plane(A, res.x),
-                niters=res.niters,
-                normr=res.normr,
-                rtrans=res.rtrans,
-                trace=res.trace,
-            )
-
-        return jax.jit(solve_pallas_v1)
 
     # A enters the jitted program as an ARGUMENT (it is a registered pytree),
     # not a closure constant: a closure-captured explicit matrix would be
@@ -728,12 +389,19 @@ def make_cg(
     # The StencilOperator is all-metadata, so both forms are equivalent
     # there; one code path covers everything.
     def solve_impl(A_, b, x0):
+        if method != "cg":
+            return SOLVERS[method](
+                A_.matvec, b, x0, max_iter=max_iter, tolerance=tolerance,
+                replace_every=replace_every,
+            )
+        direction = None
+        if backend == "triton":
+            from hpccg_tpu.ops.stencil_kernel import fused_direction
+
+            direction = partial(fused_direction, A_)
         return cg_solve(
-            lambda v: spmv(A_, v, backend=backend),
-            b,
-            x0,
-            max_iter=max_iter,
-            tolerance=tolerance,
+            A_.matvec, b, x0, max_iter=max_iter, tolerance=tolerance,
+            direction=direction,
         )
 
     return partial(jax.jit(solve_impl), A)
@@ -754,12 +422,10 @@ def cg_solve_refined(
     """Mixed-precision iterative refinement: f32 inner CG solves, f64-quality
     result.
 
-    f64 on TPU is emulated (double-double with an f32 exponent range) and an
-    order of magnitude slower than native f32, so a pure-f64 deep-convergence
-    solve wastes the MXU/VPU. Classic iterative refinement gets f64 accuracy
-    at f32 kernel speed: the residual r = b - A x is computed in f64 (one
-    matvec per OUTER iteration — cheap), the correction solve A d = r runs
-    entirely in f32 through the fast backends (megakernel/streamkernel/...),
+    The solve is bandwidth-bound, and an f32 vector is half the bytes of an
+    f64 one. Classic iterative refinement gets f64 accuracy from f32 inner
+    solves: the residual r = b - A x is computed in f64 (one matvec per
+    OUTER iteration), the correction solve A d = r runs entirely in f32,
     and x accumulates in f64. Each outer round recovers ~7 more decimal
     digits until the f64 floor.
 
@@ -768,7 +434,6 @@ def cg_solve_refined(
     niters counts total INNER iterations.
     """
     from hpccg_tpu.operators import StencilOperator
-    from hpccg_tpu.ops.spmv import spmv
 
     if jnp.dtype(b.dtype).itemsize != 8:
         raise ValueError("cg_solve_refined expects f64 b/x0 (jax_enable_x64)")
@@ -785,20 +450,19 @@ def cg_solve_refined(
     # The inner RHS is unit-scaled so a FIXED relative tolerance works for
     # every outer round; without a tolerance the f32 inner solve would
     # over-converge on small problems (residual collapses exactly -> the
-    # reference recurrence's alpha = 0/0 NaN, see verify SKILL notes).
+    # reference recurrence's alpha = 0/0 NaN).
     inner = make_cg(
         A32, max_iter=inner_max_iter, tolerance=1e-6, backend=backend,
         method=method, replace_every=replace_every,
     )
 
-    # exactly ONE emulated-f64 SpMV per outer round (it is the expensive op
-    # this function exists to minimize): the residual computed at the end of
-    # a round is reused as the next round's RHS
+    # exactly ONE f64 SpMV per outer round: the residual computed at the end
+    # of a round is reused as the next round's RHS
     x = x0
     trace = []
     total_inner = 0
-    r64 = b - spmv(A, x)
-    normr = jnp.sqrt(jnp.vdot(r64, r64))
+    r64 = b - A.matvec(x)
+    normr = jnp.sqrt(_ddot(r64, r64))
     trace.append(float(normr))
     for _ in range(outer_max_iter):
         scale = float(normr)
@@ -808,8 +472,8 @@ def cg_solve_refined(
         res = inner(rhs32, jnp.zeros_like(rhs32))
         total_inner += int(res.niters)
         x = x + scale * res.x.astype(b.dtype)
-        r64 = b - spmv(A, x)
-        normr = jnp.sqrt(jnp.vdot(r64, r64))
+        r64 = b - A.matvec(x)
+        normr = jnp.sqrt(_ddot(r64, r64))
         trace.append(float(normr))
 
     trace_arr = jnp.full((outer_max_iter + 1,), jnp.nan, b.dtype)

@@ -9,9 +9,9 @@ scaling fixes the global domain and divides nz across the mesh (ref: global
 scaling efficiency (nnz/s per device relative to the 1-device point — the
 BASELINE.json metric).
 
-On a host with one real chip the sweep can run on virtual CPU devices
-(--platform cpu, exercising the real shard_map/ppermute/psum paths); published
-numbers must come from real multi-chip meshes.
+The sweep can also run on virtual CPU devices (--platform cpu, exercising the
+real shard_map/ppermute/psum paths); published numbers must come from real
+multi-GPU meshes.
 """
 
 from __future__ import annotations
@@ -36,27 +36,12 @@ def main(argv=None) -> int:
     ap.add_argument("--global-nz", type=int, default=1024, help="strong: global nz")
     ap.add_argument("--stencil", type=int, default=27, choices=[27, 7])
     ap.add_argument("--dtype", default="float32")
-    ap.add_argument("--backend", default="auto", choices=["auto", "pallas", "collective"], help="collective = whole-solve kernel with in-kernel RDMA halo + allreduce")
     ap.add_argument("--iters", type=int, default=64, help="slope-timing base iterations")
     ap.add_argument("--platform", default=None, help="cpu to force virtual devices")
     ap.add_argument(
-        "--pod-model",
-        action="store_true",
-        help="after the measured points, emit analytic pod predictions "
-        "(utils/podmodel.py): per-iteration time and weak-scaling "
-        "efficiency at 4..256 chips derived from the first measured "
-        "point's per-shard compute time + stated v5e ICI/DCN figures — "
-        "the falsifiable claim a real pod run validates",
-    )
-    ap.add_argument(
-        "--ici-domain", type=int, default=256,
-        help="pod model: chips per ICI domain (a v5e pod = 256); domain "
-        "boundaries ride DCN",
-    )
-    ap.add_argument(
         "--init-distributed",
         action="store_true",
-        help="call jax.distributed.initialize() first (multi-host pods)",
+        help="call jax.distributed.initialize() first (multi-host runs)",
     )
     args = ap.parse_args(argv)
 
@@ -132,45 +117,27 @@ def main(argv=None) -> int:
             mesh = make_mesh(nd)
             axis = "z"
         k1, k2 = args.iters + 1, 8 * args.iters + 1
-        backend = args.backend
-        # the collective kernel supports cg and cg1 in-kernel (round 4);
-        # sweeps ride the single-reduction recurrence — the latency-bound
-        # regime these kernels exist for (cf. utils/podmodel.py)
-        method = "cg1" if backend == "collective" else "cg"
-        backend_used = backend
         if remainder:
             from hpccg_tpu.parallel.cg import (
                 generate_problem_sharded_masked,
                 make_distributed_cg_masked,
-                masked_backend,
             )
 
-            # the masked remainder solve rides the same kernel tier as the
-            # divisible points (pallas on TPU): resolve through the shared
-            # helper so the reported backend is what actually ran
-            mb = masked_backend(
-                cfg,
-                args.backend
-                if args.backend in ("auto", "pallas", "pallas_dd")
-                else "auto",
-            )
-            backend_used = f"{mb}-halo-masked"
-
+            backend_used = "stencil-halo-masked"
             prob = generate_problem_sharded_masked(
                 cfg, mesh, nz_global=args.global_nz, axis=axis
             )
             s1 = make_distributed_cg_masked(
-                cfg, mesh, nz_global=args.global_nz, max_iter=k1,
-                backend=mb, axis=axis,
+                cfg, mesh, nz_global=args.global_nz, max_iter=k1, axis=axis,
             )
             s2 = make_distributed_cg_masked(
-                cfg, mesh, nz_global=args.global_nz, max_iter=k2,
-                backend=mb, axis=axis,
+                cfg, mesh, nz_global=args.global_nz, max_iter=k2, axis=axis,
             )
         else:
+            backend_used = "stencil-halo"
             prob = generate_problem_sharded(cfg, mesh, axis=axis)
-            s1 = make_distributed_cg(cfg, mesh, max_iter=k1, backend=backend, method=method, axis=axis)
-            s2 = make_distributed_cg(cfg, mesh, max_iter=k2, backend=backend, method=method, axis=axis)
+            s1 = make_distributed_cg(cfg, mesh, max_iter=k1, axis=axis)
+            s2 = make_distributed_cg(cfg, mesh, max_iter=k2, axis=axis)
         t1 = time_fn(s1, prob.b, prob.x0, reps=3)
         t2 = time_fn(s2, prob.b, prob.x0, reps=3)
         below_res = (t2 - t1) <= 0
@@ -212,76 +179,7 @@ def main(argv=None) -> int:
                 "efficiency_vs_first": [round(e, 3) for e in eff],
             }
         )
-    if args.pod_model and results:
-        from hpccg_tpu.utils.podmodel import (
-            PodModelParams,
-            predict_strong_scaling,
-            predict_weak_scaling,
-        )
-
-        # basis: MUST be a mesh-1 point — a multi-device measurement
-        # already contains allreduce/halo time, and the model would add
-        # its own comm terms on top (silently biased predictions)
-        base = min(results, key=lambda r: r["mesh"])
-        if base["mesh"] != 1:
-            emit(
-                {
-                    "pod_model": {
-                        "skipped": (
-                            "needs a mesh-1 measured point: the basis must "
-                            "be pure per-shard compute (measured mesh "
-                            f"{base['mesh']} already contains comm time)"
-                        )
-                    }
-                }
-            )
-            return 0
-        t_compute = base["cg_iter_us"] * 1e-6
-        nx_, ny_ = base["local_dims"][0], base["local_dims"][1]
-        params = PodModelParams(ici_domain=args.ici_domain)
-        if args.mode == "strong":
-            # strong protocol: the mesh-1 basis IS the whole global problem
-            # on one chip (t_compute then divides by N in the model)
-            preds = predict_strong_scaling(
-                t_compute,
-                nx=nx_,
-                ny=ny_,
-                itemsize=dtype.itemsize,
-                params=params,
-            )
-        else:
-            preds = predict_weak_scaling(
-                t_compute,
-                nx=nx_,
-                ny=ny_,
-                itemsize=dtype.itemsize,
-                params=params,
-            )
-        emit(
-            {
-                "pod_model": {
-                    "basis": {
-                        "measured_point": base,
-                        "platform": jax.default_backend(),
-                        "params": dataclasses_asdict(params),
-                    },
-                    "note": (
-                        "analytic prediction from the measured per-shard "
-                        "iteration + stated public v5e ICI/DCN figures "
-                        "(utils/podmodel.py); NOT a measurement — the first "
-                        "real pod run validates/calibrates it"
-                    ),
-                    "predictions": preds,
-                }
-            }
-        )
     return 0
-
-
-def dataclasses_asdict(obj):
-    import dataclasses as _dc
-
-    return _dc.asdict(obj)
 
 
 if __name__ == "__main__":

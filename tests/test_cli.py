@@ -62,6 +62,11 @@ def test_check_flag():
     line = [l for l in out.splitlines() if "computed and exact" in l][0]
     assert float(line.split("=")[-1]) < 1e-8  # converged to xexact = ones
     assert "Difference between computed and exact:" in out  # report key
+    # the true residual ||b - A x|| agrees with the recurrence's normr
+    true_r = float([l for l in out.splitlines() if "True residual ||" in l][0].split("=")[-1])
+    final = float([l for l in out.splitlines() if l.startswith("Final residual:")][0].split(":")[-1])
+    assert "True residual:" in out
+    assert abs(true_r - final) <= 1e-6 * 258.24  # both at the f64 floor of ||b||
 
 
 def test_profile_flag(tmp_path):
@@ -79,6 +84,20 @@ def test_profile_flag(tmp_path):
 def test_bad_args():
     rc, _ = run_cli(["4", "4"])
     assert rc == 2
+
+
+@pytest.mark.parametrize(
+    "backend",
+    ["pallas", "pallas_dd", "pallas_v1", "pallas_fused", "megakernel",
+     "streamkernel", "collective", "ell", "dia"],
+)
+def test_removed_backends_rejected(backend, capsys):
+    """The CLI offers only the paths that remain: auto, the XLA stencil and
+    the Triton kernel."""
+    with pytest.raises(SystemExit) as e:
+        main(["4", "4", "4", "--backend", backend])
+    assert e.value.code == 2
+    assert "invalid choice" in capsys.readouterr().err
 
 
 def test_json_output():
@@ -148,10 +167,8 @@ def test_refine_requires_f64():
 
 @pytest.mark.slow
 def test_mesh_report_benches_solved_tier(run_cli=None):
-    """round-2 weak #2: in mesh mode the SPARSEMV Time-Summary row
-    micro-benchmarks the tier the solve ran — with --backend pallas the
-    bench loop runs the overlapped pallas-v2 halo matvec (interpret mode
-    off-chip) and the disclaimer names that backend."""
+    """In mesh mode the SPARSEMV Time-Summary row micro-benchmarks the path
+    the solve ran — the XLA halo stencil — and the note names it."""
     import contextlib
     import io as _io
     import json
@@ -161,11 +178,11 @@ def test_mesh_report_benches_solved_tier(run_cli=None):
     buf = _io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = main(["6", "5", "4", "--dtype", "float32", "--max-iter", "10",
-                   "--mesh", "2", "--backend", "pallas", "--json", "--quiet"])
+                   "--mesh", "2", "--json", "--quiet"])
     assert rc == 0
     out = json.loads(buf.getvalue()[buf.getvalue().index("{"):])
     ts = json.dumps(out["Time Summary"])
-    assert "backend=distributed:pallas" in ts
+    assert "backend=distributed:stencil-halo" in ts
     # the SPARSEMV row was actually measured (not NaN)
     spmv_t = out["Time Summary"]["SPARSEMV"]
     assert spmv_t == spmv_t and spmv_t > 0

@@ -1,4 +1,4 @@
-"""Distributed file-mode, end-to-end (VERDICT round-1 item 2): a loaded
+"""Distributed file-mode, end-to-end: a loaded
 explicit matrix partitioned row-wise over the mesh — banded-halo DIA path
 and all-gather ELL path — wired through the CLI, matching the single-device
 solve (ref main.cpp:161-179: read_HPC_row -> make_local_matrix -> MPI CG).
@@ -92,6 +92,25 @@ def test_distributed_dia_rejects_wide_band():
         make_distributed_dia_cg(mesh, max_iter=5)(A, b, jnp.zeros_like(b))
 
 
+def test_solver_memoization_reuses_jit_but_not_data():
+    """The factory memoizes jitted solves on the static layout key (jax.jit
+    caches per function object); a second matrix with the SAME layout but
+    different values must still solve ITS system through the cached
+    function (data flows as arguments, never closure captures): with
+    A2 = 2*A1 and b1 = A1 @ 1, the second solve's answer is 0.5 — a stale
+    capture of A1's data would return 1.0."""
+    n = 1024
+    A1 = _banded(n, (-97, -40, -3, 0, 3, 40, 97), seed=7)
+    A2 = DiaMatrix(data=A1.data * 2.0, offsets=A1.offsets, total_nrow=n)
+    b1 = A1.matvec(jnp.ones((n,), jnp.float64))
+    x0 = jnp.zeros_like(b1)
+    solve = make_distributed_dia_cg(make_mesh(2), max_iter=12)
+    r1 = solve(A1, b1, x0)  # populates the (offsets, L) jit cache
+    np.testing.assert_allclose(np.asarray(r1.x), 1.0, atol=0.05)
+    r2 = solve(A2, b1, x0)  # same key, DIFFERENT data
+    np.testing.assert_allclose(np.asarray(r2.x), 0.5, atol=0.05)
+
+
 class TestCliFileMesh:
     def _write(self, tmp_path, cfg):
         prob = generate_ell(cfg)
@@ -152,7 +171,7 @@ class TestCliFileMesh:
     @pytest.mark.slow
     def test_file_mesh_kernel_rows_finite(self, tmp_path):
         """Distributed file mode reports REAL (finite) DDOT/WAXPBY/SPARSEMV
-        Time Summary rows — round-3 VERDICT #6: the reference prints full
+        Time Summary rows: the reference prints full
         kernel breakdowns in file mode too (main.cpp:266-298). The SPARSEMV
         row benches the tier that solved (here the dia-halo per-shard
         kernel), named in the Time Summary note."""
@@ -174,10 +193,8 @@ class TestCliFileMesh:
 
 @pytest.mark.slow
 def test_file_mesh_scattered_band_goes_allgather(tmp_path):
-    """An f64 scattered-narrow-band file under --mesh: the gather kernel is
-    32-bit-only, so no gell tier is offered and the solve falls through to
-    the all-gather ELL path (f32 loads of the same class ride the
-    distributed gell-halo path — test_distributed_gell.py)."""
+    """An f64 scattered-narrow-band file under --mesh: too many diagonals
+    for DIA, so the solve runs the all-gather ELL path."""
     import contextlib
     import io as _io
 
@@ -268,10 +285,8 @@ def test_distributed_dia_rejects_many_diagonals():
 
 @pytest.mark.slow
 def test_file_mesh_many_diagonals(tmp_path, capsys):
-    """A 301-diagonal banded file under --mesh: f32 rides the per-shard
-    Pallas DIA kernel (halo-filled padding); f64 — no Pallas kernel, past
-    the unroll cap — detours to all-gather. Both distributed, both
-    converging."""
+    """A 301-diagonal banded file under --mesh: past the DIA unroll cap, so
+    both dtypes run the all-gather ELL path — distributed and converging."""
     import contextlib
     import io as _io
 
@@ -294,18 +309,16 @@ def test_file_mesh_many_diagonals(tmp_path, capsys):
 
     buf = _io.StringIO()
     with contextlib.redirect_stdout(buf):
-        # f32: auto_structure keeps the 301-diagonal DIA and the CLI mesh
-        # branch uses the per-shard Pallas dia-halo path
         rc = main([path, "--dtype", "float32", "--mesh", "4", "--max-iter",
                    "15", "--skip-kernel-bench", "--quiet", "--json"])
     assert rc == 0
     err = capsys.readouterr().err
-    assert "all-gather" not in err
+    assert "matrix structure: ell" in err
     out = json.loads(buf.getvalue()[buf.getvalue().index("{"):])
     assert out["Parallelism"]["Number of mesh devices"] == 4
     assert out["Final residual"] < 1e-4 * 400.0
+    assert "ell-allgather" in json.dumps(out)
 
-    # f64: no Pallas kernel and past the unroll cap -> all-gather detour
     buf = _io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = main([path, "--no-reorder", "--mesh", "4", "--max-iter", "15",
@@ -342,114 +355,11 @@ def test_file_mesh_degenerate_diagonal_matrix(tmp_path):
     assert out["Parallelism"]["Number of mesh devices"] == 4
 
 
-def _subjaxprs_of(v):
-    if hasattr(v, "jaxpr") and hasattr(v.jaxpr, "eqns"):
-        return [v.jaxpr]
-    if hasattr(v, "eqns"):
-        return [v]
-    if isinstance(v, (list, tuple)):
-        out = []
-        for item in v:
-            out.extend(_subjaxprs_of(item))
-        return out
-    return []
-
-
-def _eqn_subjaxprs(eqn):
-    out = []
-    for v in eqn.params.values():
-        out.extend(_subjaxprs_of(v))
-    return out
-
-
-# eqns that are transparent wrappers around their body (the eqn IS the
-# call); control-flow scopes (while/scan/cond/shard_map) are NOT — they
-# consume tainted carries legitimately and are recursed into instead
-_WRAPPERS = ("pjit", "jit", "remat", "checkpoint", "custom_jvp_call", "custom_vjp_call")
-
-
-def _contains_spmv(eqn):
-    """Is this eqn a direct SpMV kernel call — a pallas_call, possibly
-    under transparent wrappers (jit etc.)?"""
-    if eqn.primitive.name == "pallas_call":
-        return True
-    if eqn.primitive.name not in _WRAPPERS:
-        return False
-    return any(
-        any(_contains_spmv(e) for e in sub.eqns) for sub in _eqn_subjaxprs(eqn)
-    )
-
-
-def _kernel_ppermute_dep(jaxpr):
-    """True if, in any scope, an SpMV-containing eqn consumes a value
-    tainted by a ppermute of the SAME scope (conservative forward taint)."""
-    found = []
-
-    def walk(jx):
-        tainted = set()
-        for eqn in jx.eqns:
-            invars = [v for v in eqn.invars if hasattr(v, "count")]
-            is_tainted = any(v in tainted for v in invars)
-            if eqn.primitive.name == "ppermute":
-                tainted.update(eqn.outvars)
-                continue
-            if _contains_spmv(eqn) and is_tainted:
-                found.append(eqn.primitive.name)
-            if is_tainted:
-                tainted.update(eqn.outvars)
-            for sub in _eqn_subjaxprs(eqn):
-                walk(sub)
-
-    walk(jaxpr.jaxpr if hasattr(jaxpr, "jaxpr") else jaxpr)
-    return bool(found)
-
-
 @pytest.mark.slow
-def test_dia_halo_overlap_kernel_has_no_ppermute_dependency():
-    """round-2 next #6: the distributed DIA matvec runs its kernel on a
-    zero halo (ppermute feeds only the tiny boundary corrections), so the
-    exchange can fly during the interior sweep."""
-    import jax
-
-    # pallas tier: > 128 diagonals, f32
-    n, ndev = 2048, 4
-    offs = tuple(range(-70, 71))  # 141 diagonals
-    rng = np.random.default_rng(0)
-    data = np.zeros((len(offs), n), np.float32)
-    for d, off in enumerate(offs):
-        lo, hi = max(0, -off), min(n, n - off)
-        data[d, lo:hi] = 300.0 if off == 0 else rng.uniform(-1, -0.1, hi - lo)
-    A = DiaMatrix(data=jnp.asarray(data), offsets=offs, total_nrow=n)
-    b = A.matvec(jnp.ones((n,), jnp.float32))
-    solve = make_distributed_dia_cg(make_mesh(ndev), max_iter=3)
-    jaxpr = jax.make_jaxpr(lambda bb, xx: solve(A, bb, xx))(b, jnp.zeros_like(b))
-    assert not _kernel_ppermute_dep(jaxpr)
-
-    # parity still holds through the correction path
-    from hpccg_tpu.solver import make_cg
-
-    single = make_cg(A, max_iter=25, tolerance=0.0)(b, jnp.zeros_like(b))
-    dist = solve_n(A, b, ndev, 25)
-    ts, td = np.asarray(single.trace), np.asarray(dist.trace)
-    good = np.isfinite(ts) & (ts > 1e-5 * ts[0])
-    np.testing.assert_allclose(td[good], ts[good], rtol=2e-4)
-
-
-def solve_n(A, b, ndev, iters):
-    import jax.numpy as _jnp
-
-    return make_distributed_dia_cg(make_mesh(ndev), max_iter=iters, tolerance=0.0)(
-        A, b, _jnp.zeros_like(b)
-    )
-
-
-@pytest.mark.slow
-def test_file_mesh_wide_scatter_rides_wide_tier(tmp_path):
-    """An f32 wide-scatter file under --mesh: auto_structure books a wide
-    tier (round 5: the dynamic-window kernel outprices the strip stack)
-    and the CLI distributes it through the tile-sharded all-gathered-x
-    path, with finite kernel rows naming the tier — instead of the
-    round-4-early fallback to take-gather ELL."""
+def test_file_mesh_wide_scatter_rides_allgather(tmp_path):
+    """An f32 wide-scatter file under --mesh: no band in any basis, so the
+    solve runs the all-gather ELL path, with finite kernel rows naming it,
+    and matches the single-device solve."""
     import contextlib
     import io as _io
 
@@ -491,22 +401,12 @@ def test_file_mesh_wide_scatter_rides_wide_tier(tmp_path):
     base = [path, "--dtype", "float32", "--max-iter", "12", "--json", "--quiet"]
     r1, _ = run(base + ["--skip-kernel-bench"])
     r8, err8 = run(base + ["--mesh", "8"])
-    # structure detection booked a wide tier in both runs (round 5: the
-    # dynamic-window model outprices the stack on this shape)
-    assert "gdynwin" in err8 or "gstack" in err8, err8
-    # the distributed solve rode that tier, not the ELL fallback
+    assert "matrix structure: ell" in err8, err8
     note = [k for k in r8["Time Summary"] if "backend=" in k]
-    assert note and (
-        "distributed:dynwin-allgather" in note[0]
-        or "distributed:stack-allgather" in note[0]
-    ), note
+    assert note and "distributed:ell-allgather" in note[0], note
     ts = r8["Time Summary"]
     for row in ("DDOT    ", "WAXPBY  ", "SPARSEMV"):
         assert np.isfinite(ts[row]), (row, ts)
-    bench_note = [k for k in ts if "SPARSEMV row benches" in k]
-    assert bench_note and (
-        "dynwin-allgather" in bench_note[0] or "stack-allgather" in bench_note[0]
-    )
     # same solve as single-device (f32 reduction-order tolerance)
     np.testing.assert_allclose(
         r8["Final residual"], r1["Final residual"], rtol=5e-3, atol=1e-6

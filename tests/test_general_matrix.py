@@ -1,12 +1,10 @@
-"""General explicit-matrix fast path: blocked-DIA Pallas kernel + RCM
-reordering (VERDICT round-1 item 1 — the reference SpMV runs ANY matrix,
-HPC_sparsemv.cpp:68-87; on TPU that takes diagonal structure, found or made).
+"""General explicit matrices: the DIA/ELL chooser and RCM reordering (the
+reference SpMV runs ANY matrix, HPC_sparsemv.cpp:68-87).
 """
 
 import numpy as np
 import pytest
 
-import jax
 import jax.numpy as jnp
 
 from hpccg_tpu import ProblemConfig
@@ -38,90 +36,6 @@ def random_banded_dia(n, noffs, rng, span=None, dtype=np.float32, diag_scale=2.0
         offsets=tuple(int(o) for o in offs),
         total_nrow=n,
     )
-
-
-class TestDiaPallasKernel:
-    @pytest.mark.parametrize("noffs,n", [(11, 300), (257, 2000), (357, 700)])
-    def test_matches_dense(self, noffs, n):
-        from hpccg_tpu.ops.pallas.dia_kernel import spmv_dia_pallas
-
-        rng = np.random.default_rng(noffs + n)
-        A = random_banded_dia(n, noffs, rng)
-        x = jnp.asarray(rng.standard_normal(n), jnp.float32)
-        y_kernel = spmv_dia_pallas(A, x, interpret=True)
-        y_dense = np.asarray(A.to_dense(), np.float64) @ np.asarray(x, np.float64)
-        np.testing.assert_allclose(
-            np.asarray(y_kernel, np.float64), y_dense, rtol=2e-5, atol=1e-4
-        )
-
-    def test_large_positive_and_negative_offsets(self):
-        """Offsets beyond +-128 exercise the sublane-shift (q) path."""
-        from hpccg_tpu.ops.pallas.dia_kernel import spmv_dia_pallas
-
-        n = 900
-        offs = (-700, -257, -128, -1, 0, 3, 129, 400, 800)
-        rng = np.random.default_rng(0)
-        data = np.zeros((len(offs), n), np.float32)
-        for d, off in enumerate(offs):
-            lo, hi = max(0, -off), min(n, n - off)
-            data[d, lo:hi] = rng.standard_normal(hi - lo)
-        A = DiaMatrix(data=jnp.asarray(data), offsets=offs, total_nrow=n)
-        x = jnp.asarray(rng.standard_normal(n), jnp.float32)
-        y = spmv_dia_pallas(A, x, interpret=True)
-        y_ref = np.asarray(A.to_dense(), np.float64) @ np.asarray(x, np.float64)
-        np.testing.assert_allclose(
-            np.asarray(y, np.float64), y_ref, rtol=2e-5, atol=1e-4
-        )
-
-    @pytest.mark.slow
-    def test_matvec_dispatch_threshold(self, monkeypatch):
-        """DiaMatrix.matvec routes >128-diagonal matrices to the kernel on
-        TPU; the kernel path must agree with the unrolled-roll path."""
-        rng = np.random.default_rng(7)
-        A = random_banded_dia(600, 161, rng)
-        x = jnp.asarray(rng.standard_normal(600), jnp.float32)
-        y_loop = A.matvec(x)  # CPU: unrolled rolls
-        from hpccg_tpu.ops.pallas import dia_kernel
-
-        called = {}
-        orig = dia_kernel._spmv_dia_pallas
-
-        def spy(offsets, data2, xp, interpret):
-            called["yes"] = True
-            return orig(offsets, data2, xp, True)  # force interpret off-TPU
-
-        monkeypatch.setattr(dia_kernel, "_spmv_dia_pallas", spy)
-        monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-        y_kernel = A.matvec(x)
-        assert called.get("yes")
-        np.testing.assert_allclose(
-            np.asarray(y_kernel), np.asarray(y_loop), rtol=2e-5, atol=1e-4
-        )
-
-    @pytest.mark.slow
-    def test_cg_solves_256_diag_matrix(self):
-        """End-to-end: CG on a random >=257-diagonal SPD matrix through the
-        Pallas kernel (interpret) converges to the planted solution."""
-        from hpccg_tpu.ops.pallas.dia_kernel import spmv_dia_pallas
-        from hpccg_tpu.solver import cg_solve
-
-        rng = np.random.default_rng(42)
-        n = 1500
-        # diag_scale 0.62 keeps SPD (Gershgorin ratio ~1.1) while the f32
-        # residual stays off exact zero for the whole run — tolerance=0 with
-        # an exactly-zero residual reproduces the reference's 0/0 NaN
-        A = random_banded_dia(n, 257, rng, diag_scale=0.62)
-        xexact = jnp.ones((n,), jnp.float32)
-        b = A.matvec(xexact)
-        res = cg_solve(
-            lambda v: spmv_dia_pallas(A, v, interpret=True),
-            b,
-            jnp.zeros_like(b),
-            max_iter=60,
-            tolerance=0.0,
-        )
-        assert float(res.normr) < 1e-3 * float(res.trace[0])
-        assert np.max(np.abs(np.asarray(res.x) - 1.0)) < 1e-3
 
 
 class TestReorder:
@@ -187,10 +101,11 @@ class TestReorder:
         assert report.format == "dia" and perm is None
         assert isinstance(A, DiaMatrix)
 
-    def test_auto_structure_honest_ell_fallback(self):
+    def test_auto_structure_permuted_stencil_rides_ell_after_rcm(self):
         """A randomly permuted 3-D stencil has no small-diagonal-count
-        representation even after RCM — auto_structure must say so, not
-        inflate storage."""
+        representation even after RCM: DIA would stream more bytes than the
+        ELL gather, so auto_structure keeps ELL in the RCM basis (better
+        gather locality) and says so."""
         from hpccg_tpu.reorder import auto_structure
 
         prob = generate_ell(ProblemConfig(8, 8, 8, dtype=jnp.float32))
@@ -212,80 +127,57 @@ class TestReorder:
             vals=jnp.asarray(vals), cols=jnp.asarray(cols),
             valid=jnp.asarray(valid), total_nrow=n,
         )
-        A, perm_out, report = auto_structure(ell, max_inflation=8.0)
-        # at 512 rows the whole matrix fits a gather window, so the
-        # permuted stencil is now SERVED (gell) rather than ELL-fallback
-        assert report.format in ("gell", "gell+rcm", "dia+rcm"), report
+        A, perm_out, report = auto_structure(ell)
+        assert report.format == "ell+rcm", report
+        assert isinstance(A, EllMatrix) and perm_out is not None
+        assert report.bandwidth_after < report.bandwidth_before
+        assert "ELL" in report.reason
+        # P A P^T exactly
+        np.testing.assert_array_equal(
+            np.asarray(A.to_dense()), scrambled[np.ix_(perm_out, perm_out)]
+        )
 
-    def test_auto_structure_wide_scatter_rides_wide_tier(self):
-        """Genuinely wide scatter — random columns across the whole range,
-        too wide for the plain gather window even after RCM. Round 3 fell
-        back to ELL here; round 4's strip stack covered the class, round
-        5's dynamic-window tier beats it (chip-measured 3.5x on this
-        random-scatter shape) — the chooser must book a wide tier with a
-        correct operator, and with both models available that is dynwin."""
-        from hpccg_tpu.ops.pallas.gell_dynwin import GellDynwinMatrix
-        from hpccg_tpu.reorder import auto_structure
+    @pytest.mark.parametrize("dtype", [np.float32, np.float64])
+    def test_auto_structure_wide_scatter_stays_ell(self, dtype):
+        """Genuinely wide scatter — random columns across the whole range:
+        no basis gives a cheap band, so the gather path serves it, in
+        either dtype, and the operator is the loaded or permuted matrix."""
+        from hpccg_tpu.reorder import auto_structure, permute_ell
 
         rng = np.random.default_rng(9)
-        n, width = 9000, 5
+        n, width = 3000, 5
         cols = np.zeros((n, width), np.int32)
-        vals = np.zeros((n, width), np.float32)
+        vals = np.zeros((n, width), dtype)
         valid = np.ones((n, width), bool)
         for i in range(n):
             js = rng.choice(n, size=width - 1, replace=False)
             cols[i] = np.r_[i, js]
             vals[i] = np.r_[10.0, rng.uniform(-0.1, 0.1, width - 1)]
-        ell = EllMatrix(
-            vals=jnp.asarray(vals), cols=jnp.asarray(cols),
-            valid=jnp.asarray(valid), total_nrow=n,
-        )
-        A, perm_out, report = auto_structure(ell, max_inflation=8.0)
-        # the shared cost model prices dynwin's lower inflation ahead of
-        # the stack on this shape (chip-verified ranking)
-        assert report.format.startswith("gdynwin"), report
-        assert isinstance(A, GellDynwinMatrix)
-        # parity through the chosen operator (in whichever basis it chose)
-        x = np.asarray(rng.standard_normal(n), np.float32)
-        src = ell if perm_out is None else None
-        if src is None:
-            from hpccg_tpu.reorder import permute_ell
+        ell = EllMatrix(vals=vals, cols=cols, valid=valid, total_nrow=n)
+        A, perm_out, report = auto_structure(ell)
+        assert report.format in ("ell", "ell+rcm"), report
+        src = ell if perm_out is None else permute_ell(ell, perm_out)
+        x = rng.standard_normal(n).astype(dtype)
+        y_ref = np.asarray(src.to_dense(), np.float64) @ x.astype(np.float64)
+        y = np.asarray(A.matvec(jnp.asarray(x)), np.float64)
+        rtol = 1e-5 if dtype == np.float32 else 1e-12
+        assert np.max(np.abs(y - y_ref)) / np.max(np.abs(y_ref)) < rtol
 
-            src = permute_ell(
-                EllMatrix(vals=vals, cols=cols, valid=valid, total_nrow=n),
-                perm_out,
-            )
-        rows_c, cols_c, vals_c = src.to_coo()
-        y_ref = np.zeros(n)
-        np.add.at(
-            y_ref, np.asarray(rows_c),
-            np.asarray(vals_c) * x[np.asarray(cols_c, np.int64)],
-        )
-        y = np.asarray(A.matvec(jnp.asarray(x)))
-        assert np.max(np.abs(y - y_ref)) / np.max(np.abs(y_ref)) < 1e-5
+    @pytest.mark.parametrize(
+        "ndiag,width,itemsize,want",
+        [
+            (27, 27, 8, True),  # stencil file: DIA 8 B/slot vs ELL 12 B/slot
+            (40, 27, 8, True),  # 320 <= 27 * 12 = 324
+            (41, 27, 8, False),  # 328 > 324
+            (54, 27, 4, True),  # 216 <= 27 * 8 = 216
+            (55, 27, 4, False),
+            (129, 400, 8, False),  # past the unroll cap, whatever the bytes
+        ],
+    )
+    def test_dia_beats_ell_rule(self, ndiag, width, itemsize, want):
+        from hpccg_tpu.reorder import dia_beats_ell
 
-    def test_auto_structure_f64_wide_scatter_stays_ell(self):
-        """OFF TPU the dd strip kernel loses to the exact XLA paths, so f64
-        wide scatter falls back to ELL with the honest reason (on TPU it
-        rides the dd stack — test_gell_stack pins that side)."""
-        from hpccg_tpu.reorder import auto_structure
-
-        rng = np.random.default_rng(10)
-        n, width = 6000, 4
-        cols = np.zeros((n, width), np.int32)
-        vals = np.zeros((n, width))
-        valid = np.ones((n, width), bool)
-        for i in range(n):
-            js = rng.choice(n, size=width - 1, replace=False)
-            cols[i] = np.r_[i, js]
-            vals[i] = np.r_[10.0, rng.uniform(-0.1, 0.1, width - 1)]
-        ell = EllMatrix(
-            vals=jnp.asarray(vals, jnp.float64), cols=jnp.asarray(cols),
-            valid=jnp.asarray(valid), total_nrow=n,
-        )
-        A, perm_out, report = auto_structure(ell, max_inflation=8.0)
-        assert report.format == "ell", report
-        assert "no gather-free structure" in report.reason
+        assert dia_beats_ell(ndiag, width, itemsize) == want
 
 
 @pytest.mark.slow
@@ -325,161 +217,6 @@ def test_solve_in_permuted_basis_matches_direct():
     np.testing.assert_allclose(x, x_direct, rtol=1e-8, atol=1e-9)
 
 
-class TestGellKernel:
-    """Windowed gather-ELL: the scattered-narrow-band tier."""
-
-    def _scattered_band(self, n=3000, bw=200, per_row=9, seed=4):
-        """Random SPD matrix: narrow band, offsets scattered per row
-        (DIA would inflate ~2*bw/per_row, the gather-ELL sweet spot)."""
-        rng = np.random.default_rng(seed)
-        width = per_row
-        vals = np.zeros((n, width), np.float32)
-        cols = np.zeros((n, width), np.int32)
-        valid = np.zeros((n, width), bool)
-        # symmetric: build upper entries then mirror via dict
-        entries = {}
-        for i in range(n):
-            js = i + rng.choice(np.arange(1, bw), size=(per_row - 1) // 2, replace=False)
-            js = js[js < n]
-            for j in js:
-                entries[(i, int(j))] = entries[(int(j), i)] = float(
-                    rng.uniform(-1.0, -0.1)
-                )
-        for i in range(n):
-            entries[(i, i)] = 2.0 * per_row
-        rows_of = {}
-        for (i, j), v in entries.items():
-            rows_of.setdefault(i, []).append((j, v))
-        width = max(len(v) for v in rows_of.values())
-        vals = np.zeros((n, width), np.float32)
-        cols = np.zeros((n, width), np.int32)
-        valid = np.zeros((n, width), bool)
-        for i, lst in rows_of.items():
-            lst.sort()
-            for s, (j, v) in enumerate(lst):
-                cols[i, s] = j
-                vals[i, s] = v
-                valid[i, s] = True
-        return EllMatrix(
-            vals=jnp.asarray(vals), cols=jnp.asarray(cols),
-            valid=jnp.asarray(valid), total_nrow=n,
-        )
-
-    @pytest.mark.slow
-    def test_matches_ell_oracle(self):
-        from hpccg_tpu.ops.pallas.gell_kernel import prepare_gell, spmv_gell
-
-        ell = self._scattered_band()
-        G = prepare_gell(ell)
-        rng = np.random.default_rng(1)
-        x = jnp.asarray(rng.standard_normal(ell.local_nrow), jnp.float32)
-        y_g = spmv_gell(G, x, interpret=True)
-        y_o = ell.matvec(x)  # XLA gather oracle
-        np.testing.assert_allclose(
-            np.asarray(y_g, np.float64), np.asarray(y_o, np.float64),
-            rtol=3e-5, atol=1e-4,
-        )
-
-    def test_window_edges_and_negative_offsets(self):
-        from hpccg_tpu.ops.pallas.gell_kernel import prepare_gell, spmv_gell
-
-        # rows referencing the extreme ends of their windows
-        n = 2200
-        width = 3
-        cols = np.zeros((n, width), np.int32)
-        vals = np.zeros((n, width), np.float32)
-        valid = np.ones((n, width), bool)
-        rng = np.random.default_rng(2)
-        for i in range(n):
-            lo, hi = max(0, i - 300), min(n - 1, i + 300)
-            cols[i] = [lo, i, hi]
-            vals[i] = rng.standard_normal(3)
-        ell = EllMatrix(
-            vals=jnp.asarray(vals), cols=jnp.asarray(cols),
-            valid=jnp.asarray(valid), total_nrow=n,
-        )
-        G = prepare_gell(ell)
-        x = jnp.asarray(rng.standard_normal(n), jnp.float32)
-        np.testing.assert_allclose(
-            np.asarray(spmv_gell(G, x, interpret=True), np.float64),
-            np.asarray(ell.matvec(x), np.float64),
-            rtol=3e-5, atol=1e-4,
-        )
-
-    @pytest.mark.slow
-    def test_cg_through_make_cg(self):
-        from hpccg_tpu.ops.pallas.gell_kernel import prepare_gell
-        from hpccg_tpu.solver import make_cg
-
-        ell = self._scattered_band(n=1500, bw=120, per_row=7)
-        G = prepare_gell(ell)
-        xex = jnp.ones((1500,), jnp.float32)
-        b = ell.matvec(xex)
-        res = make_cg(G, max_iter=40, tolerance=0.0)(b, jnp.zeros_like(b))
-        assert float(res.normr) < 1e-3 * float(res.trace[0])
-        assert np.max(np.abs(np.asarray(res.x) - 1.0)) < 1e-3
-
-    def test_auto_structure_picks_gell_for_scattered_band(self):
-        from hpccg_tpu.ops.pallas.gell_kernel import GellMatrix
-        from hpccg_tpu.reorder import auto_structure
-
-        ell = self._scattered_band(n=2000, bw=400, per_row=7)
-        A, perm, report = auto_structure(ell, max_inflation=16.0)
-        assert report.format.startswith("gell"), report
-        assert isinstance(A, GellMatrix)
-
-    def test_gell_to_coo_and_checkpoint_roundtrip(self, tmp_path):
-        from hpccg_tpu.io import load_problem, save_problem
-        from hpccg_tpu.models.stencil import Problem
-        from hpccg_tpu.ops.pallas.gell_kernel import prepare_gell
-
-        ell = self._scattered_band(n=600, bw=80, per_row=5)
-        G = prepare_gell(ell)
-        r0, c0, v0 = ell.to_coo()
-        rg, cg, vg = G.to_coo()
-        ref = {(int(r), int(c)): float(v) for r, c, v in zip(r0, c0, v0) if v != 0}
-        got = {(int(r), int(c)): float(v) for r, c, v in zip(rg, cg, vg)}
-        assert ref == got
-
-        b = ell.matvec(jnp.ones((600,), jnp.float32))
-        prob = Problem(A=G, b=b, x0=jnp.zeros_like(b),
-                       xexact=jnp.ones_like(b), total_nrow=600,
-                       total_nnz_model=G.nnz, total_nnz_exact=G.nnz)
-        path = str(tmp_path / "g.npz")
-        save_problem(path, prob)
-        prob2, _ = load_problem(path)
-        x = jnp.asarray(np.random.default_rng(0).standard_normal(600), jnp.float32)
-        np.testing.assert_allclose(
-            np.asarray(prob2.A.matvec(x)), np.asarray(G.matvec(x)), rtol=1e-6
-        )
-
-
-@pytest.mark.slow
-def test_distributed_dia_pallas_many_diagonals_matches_single():
-    """>128-diagonal f32 DIA over the mesh: the per-shard Pallas kernel with
-    halo-filled padding matches the single-device PreparedDia solve."""
-    from hpccg_tpu.parallel import make_distributed_dia_cg, make_mesh
-    from hpccg_tpu.solver import make_cg
-
-    rng = np.random.default_rng(8)
-    n = 1024
-    A = random_banded_dia(n, 133, rng, span=220, diag_scale=0.8)
-    A = DiaMatrix(data=A.data.astype(jnp.float32), offsets=A.offsets, total_nrow=n)
-    xex = jnp.ones((n,), jnp.float32)
-    b = A.matvec(xex)
-    x0 = jnp.zeros_like(b)
-    single = make_cg(A, max_iter=30, tolerance=0.0)(b, x0)
-    mesh = make_mesh(4)
-    dist = make_distributed_dia_cg(mesh, max_iter=30, tolerance=0.0)(A, b, x0)
-    assert int(dist.niters) == int(single.niters)
-    ts, td = np.asarray(single.trace), np.asarray(dist.trace)
-    good = np.isfinite(ts) & (ts > 1e-5 * ts[0])
-    np.testing.assert_allclose(td[good], ts[good], rtol=2e-4)
-    np.testing.assert_allclose(
-        np.asarray(dist.x), np.asarray(single.x), rtol=2e-4, atol=1e-5
-    )
-
-
 def test_auto_structure_stored_zero_reason():
     """A banded matrix carrying one explicit 0.0 entry falls to ELL with a
     reason that names the stored zero (not a bogus bandwidth claim)."""
@@ -499,126 +236,3 @@ def test_auto_structure_stored_zero_reason():
     A, perm, report = auto_structure(ell)
     assert report.format == "ell"
     assert "zero" in report.reason
-
-
-class TestGellDD:
-    """Double-float gather kernel: the f64 scattered-narrow-band tier."""
-
-    def _ell_f64(self, n=2500, bw=250, per_row=9, seed=7):
-        ell32 = TestGellKernel()._scattered_band(n=n, bw=bw, per_row=per_row, seed=seed)
-        # full f64-significand values (f32-representable would hide the lo channel)
-        rng = np.random.default_rng(seed + 1)
-        vals = np.asarray(ell32.vals, np.float64) * (
-            1 + 1e-9 * rng.standard_normal(ell32.vals.shape)
-        )
-        return EllMatrix(
-            vals=jnp.asarray(vals),
-            cols=ell32.cols,
-            valid=ell32.valid,
-            total_nrow=ell32.total_nrow,
-        )
-
-    @pytest.mark.slow
-    def test_matvec_f64_class(self):
-        from hpccg_tpu.ops.pallas.gell_kernel import prepare_gell, spmv_gell_dd
-
-        ell = self._ell_f64()
-        G = prepare_gell(ell)
-        assert G.dtype == jnp.float64 and G.vals3lo is not None
-        rng = np.random.default_rng(3)
-        x = jnp.asarray(
-            rng.standard_normal(ell.local_nrow)
-            * (1 + 1e-9 * rng.standard_normal(ell.local_nrow))
-        )
-        y = spmv_gell_dd(G, x, interpret=True)
-        y_ref = ell.matvec(x)  # XLA f64 gather oracle
-        rel = float(jnp.max(jnp.abs(y - y_ref)) / jnp.max(jnp.abs(y_ref)))
-        assert rel < 1e-13, rel
-        # the matvec dispatch routes dd automatically
-        assert float(jnp.max(jnp.abs(G.matvec(x) - y_ref))) < 1e-10
-
-    @pytest.mark.slow
-    def test_cg_through_make_cg_f64(self):
-        from hpccg_tpu.ops.pallas.gell_kernel import prepare_gell
-        from hpccg_tpu.solver import make_cg
-
-        ell = self._ell_f64(n=1500, bw=120, per_row=7)
-        G = prepare_gell(ell)
-        xex = jnp.ones((1500,), jnp.float64)
-        b = ell.matvec(xex)
-        r_g = make_cg(G, max_iter=40, tolerance=0.0)(b, jnp.zeros_like(b))
-        r_o = make_cg(ell, max_iter=40, tolerance=0.0, backend="ell")(
-            b, jnp.zeros_like(b)
-        )
-        tg, to = np.asarray(r_g.trace), np.asarray(r_o.trace)
-        m = ~np.isnan(to) & (to > 1e-10 * to[0])
-        assert m.sum() >= 10
-        np.testing.assert_allclose(tg[m], to[m], rtol=1e-9)
-
-    def test_to_coo_and_checkpoint_roundtrip_f64(self, tmp_path):
-        from hpccg_tpu.io import load_problem, save_problem
-        from hpccg_tpu.models.stencil import Problem
-        from hpccg_tpu.ops.pallas.gell_kernel import gell_to_ell, prepare_gell
-
-        ell = self._ell_f64(n=600, bw=80, per_row=5)
-        G = prepare_gell(ell)
-        r0, c0, v0 = ell.to_coo()
-        rg, cg, vg = G.to_coo()
-        assert vg.dtype == np.float64
-        ref = {(int(r), int(c)): float(v) for r, c, v in zip(r0, c0, v0) if v != 0}
-        got = {(int(r), int(c)): float(v) for r, c, v in zip(rg, cg, vg)}
-        assert set(ref) == set(got)
-        # the (hi, lo) pair holds f64 values to double-float precision
-        # (~2^-49 rel — lo is the f32 ROUNDING of the f64 remainder), so
-        # the round trip is dd-exact, not bit-exact
-        for key, v in ref.items():
-            assert abs(got[key] - v) <= 3e-15 * abs(v), (key, v, got[key])
-        assert gell_to_ell(G).vals.dtype == jnp.float64
-
-        b = ell.matvec(jnp.ones((600,), jnp.float64))
-        prob = Problem(A=G, b=b, x0=jnp.zeros_like(b),
-                       xexact=jnp.ones_like(b), total_nrow=600,
-                       total_nnz_model=G.nnz, total_nnz_exact=G.nnz)
-        path = str(tmp_path / "gdd.npz")
-        save_problem(path, prob)
-        prob2, _ = load_problem(path)
-        assert prob2.A.dtype == jnp.float64
-        x = jnp.asarray(np.random.default_rng(0).standard_normal(600))
-        np.testing.assert_allclose(
-            np.asarray(prob2.A.matvec(x)), np.asarray(G.matvec(x)), rtol=1e-14
-        )
-
-    def test_chooser_offers_gell_for_f64_on_tpu_only(self, monkeypatch):
-        import jax as _jax
-
-        from hpccg_tpu.ops.pallas.gell_kernel import GellMatrix
-        from hpccg_tpu.reorder import auto_structure
-
-        ell = self._ell_f64(n=2000, bw=400, per_row=7)
-        # off-chip: f64 keeps the exact XLA representations
-        A_cpu, _, rep_cpu = auto_structure(ell, max_inflation=16.0)
-        assert not isinstance(A_cpu, GellMatrix), rep_cpu
-        # pretend-TPU: the dd gather tier is offered and wins for this shape
-        monkeypatch.setattr(_jax, "default_backend", lambda: "tpu")
-        A_tpu, _, rep_tpu = auto_structure(ell, max_inflation=16.0)
-        assert rep_tpu.format.startswith("gell"), rep_tpu
-        assert isinstance(A_tpu, GellMatrix) and A_tpu.vals3lo is not None
-
-    def test_distributed_shards_carry_dd_planes(self):
-        from hpccg_tpu.ops.pallas.gell_kernel import (
-            prepare_gell,
-            prepare_gell_shards,
-        )
-
-        ell = self._ell_f64(n=2048, bw=60, per_row=5)
-        G = prepare_gell(ell)
-        shards = prepare_gell_shards(G, 2)
-        assert shards.dtype == jnp.float64 and shards.vals4lo is not None
-        # the (hi, lo) planes reconstruct the f64 values to dd precision
-        import numpy as np
-
-        v = np.asarray(shards.vals4, np.float64) + np.asarray(
-            shards.vals4lo, np.float64
-        )
-        assert shards.cl_val.dtype == jnp.float64
-        assert v.dtype == np.float64 and np.isfinite(v).all()

@@ -107,7 +107,7 @@ def test_report_get_creates_on_miss():
 
 @pytest.mark.slow
 def test_dia_conversion_and_matvec():
-    """DIA (gather-free TPU-native general format) matches ELL exactly."""
+    """DIA (the gather-free banded format) matches ELL exactly."""
     import jax.numpy as jnp
     import numpy as np
 

@@ -1,10 +1,9 @@
-"""Strong-scaling remainder shards (VERDICT round-1 item 8): a global nz
+"""Strong-scaling remainder shards: a global nz
 that does not divide the mesh runs with ceil-padded shards and a masked
 operator, reproducing the exact unpadded trajectory."""
 
 import json
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -63,71 +62,3 @@ def test_sweep_strong_runs_nondivisible(capsys):
     assert pts and "skipped" not in pts[0]
     assert pts[0].get("remainder_masked") is True
     assert pts[0]["global_nz"] == 8
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("nz_global,ndev", [(9, 8), (11, 4)])
-def test_masked_pallas_matches_xla_masked(nz_global, ndev):
-    """round-2 missing #3: the masked remainder solve around the overlapped
-    pallas-v2 kernel (interpret off-chip) reproduces the XLA masked path's
-    trajectory — remainder sweep points keep the kernel tier."""
-    import jax.numpy as jnp
-
-    nx, ny = 5, 4
-    nz_local = -(-nz_global // ndev)
-    mesh = make_mesh(ndev)
-    cfg_l = ProblemConfig(nx, ny, nz_local, dtype=jnp.float32)
-    prob = generate_problem_sharded_masked(cfg_l, mesh, nz_global=nz_global)
-    d_x = make_distributed_cg_masked(
-        cfg_l, mesh, nz_global=nz_global, max_iter=20, backend="stencil"
-    )(prob.b, prob.x0)
-    d_p = make_distributed_cg_masked(
-        cfg_l, mesh, nz_global=nz_global, max_iter=20, backend="pallas"
-    )(prob.b, prob.x0)
-    assert int(d_p.niters) == int(d_x.niters)
-    tx, tp = np.asarray(d_x.trace), np.asarray(d_p.trace)
-    good = np.isfinite(tx) & (tx > 1e-5 * tx[0])
-    np.testing.assert_allclose(tp[good], tx[good], rtol=2e-5)
-    np.testing.assert_allclose(
-        np.asarray(d_p.x), np.asarray(d_x.x), rtol=1e-4, atol=1e-5
-    )
-    # padded planes exactly zero on the pallas path too
-    flat = np.asarray(d_p.x).reshape(ndev * nz_local, ny * nx)
-    for d in range(ndev):
-        for z in range(nz_local):
-            if d * nz_local + z >= nz_global:
-                np.testing.assert_array_equal(flat[d * nz_local + z], 0.0)
-
-
-def test_masked_backend_helper():
-    from hpccg_tpu.parallel.cg import masked_backend
-
-    import jax.numpy as jnp
-
-    cfg = ProblemConfig(4, 4, 2, dtype=jnp.float32)
-    # on the CPU test backend auto resolves to stencil; explicit pallas
-    # passes through; unknown names raise
-    assert masked_backend(cfg) == "stencil"
-    assert masked_backend(cfg, "pallas") == "pallas"
-    with pytest.raises(ValueError):
-        masked_backend(cfg, "collective")
-
-
-@pytest.mark.slow
-def test_masked_pallas_dd_f64(ndev=4):
-    """f64 remainder shards ride the dd kernel: trajectory equals the
-    masked XLA-stencil f64 path to f64-class tolerance."""
-    nz_global = 2 * ndev - 1
-    cfg = ProblemConfig(5, 4, 2, dtype=jnp.float64)
-    mesh = make_mesh(ndev)
-    prob = generate_problem_sharded_masked(cfg, mesh, nz_global=nz_global)
-    rp = make_distributed_cg_masked(
-        cfg, mesh, nz_global=nz_global, max_iter=25, backend="pallas_dd"
-    )(prob.b, prob.x0)
-    rs = make_distributed_cg_masked(
-        cfg, mesh, nz_global=nz_global, max_iter=25, backend="stencil"
-    )(prob.b, prob.x0)
-    tp, ts = np.asarray(rp.trace), np.asarray(rs.trace)
-    good = np.isfinite(ts) & (ts > 1e-10 * ts[0])
-    assert good.sum() >= 10
-    np.testing.assert_allclose(tp[good], ts[good], rtol=1e-9)

@@ -1,11 +1,9 @@
-"""--method cg1/pipecg on the FILE-matrix distributed solvers (round 4).
+"""--method cg1/pipecg on the FILE-matrix distributed solvers.
 
-The pod model (utils/podmodel.py, SWEEP_r04.json) shows the 2-reduction
-reference recurrence is allreduce-latency-bound at pod scale for small
-blocks — the one-reduction methods existed only for the generated-stencil
-and collective paths. These tests pin that every loaded-matrix tier
-(dia-halo, gell-halo, dynwin/stack-allgather, ell-allgather) honors method=
-through the shared _method_runner.
+The 2-reduction reference recurrence pays two allreduce latencies per
+iteration; the one-reduction methods pay one. These tests pin that every
+loaded-matrix path (dia-halo, ell-allgather) honors method= through the
+shared _method_runner.
 
 The matrices are SYMMETRIC (CG's contract): the cg1/pipecg scalar
 recurrences (e.g. cg1's p.Ap from r.Ar via alpha/beta) hold only for
@@ -27,8 +25,6 @@ from hpccg_tpu.parallel import make_mesh
 from hpccg_tpu.parallel.cg import (
     make_distributed_dia_cg,
     make_distributed_ell_cg,
-    make_distributed_gell_cg,
-    make_distributed_stack_cg,
 )
 
 pytestmark = pytest.mark.quick
@@ -77,68 +73,6 @@ def test_dia_halo_honors_method(method):
     r_m = make_distributed_dia_cg(mesh, max_iter=10, method=method)(
         dia, prob.b, prob.x0
     )
-    _trace_close(r_m, r_cg, rtol=RTOL[method])
-
-
-@pytest.mark.parametrize("method", ["cg1", "pipecg"])
-def test_gell_halo_honors_method(method):
-    rng = np.random.default_rng(0)
-    n = 256 * NDEV
-    pairs = [
-        (i, min(i + int(d), n - 1), float(rng.uniform(-0.5, -0.05)))
-        for i in range(n)
-        for d in rng.choice(np.arange(1, 24), size=2, replace=False)
-    ]
-    gell = _symmetric_ell(n, pairs)
-    b = gell.matvec(jnp.ones((n,), jnp.float64))
-    x0 = jnp.zeros_like(b)
-    mesh = make_mesh(NDEV)
-    r_cg = make_distributed_gell_cg(mesh, max_iter=10)(gell, b, x0)
-    r_m = make_distributed_gell_cg(mesh, max_iter=10, method=method)(gell, b, x0)
-    _trace_close(r_m, r_cg, rtol=RTOL[method])
-
-
-@pytest.mark.parametrize("method", ["cg1", "pipecg"])
-def test_stack_allgather_honors_method(method):
-    from hpccg_tpu.ops.pallas.gell_stack import prepare_gell_stack
-
-    rng = np.random.default_rng(1)
-    n = 1024 * NDEV
-    pairs = [
-        (i, int(rng.integers(0, n)), float(rng.uniform(-0.5, -0.05)))
-        for i in range(n)
-    ]
-    ell = _symmetric_ell(n, pairs)  # wide scatter: random symmetric links
-    S = prepare_gell_stack(ell, strip_chunks=8)
-    assert S.vals3lo is not None  # f64 -> the dd strip kernel per shard
-    b = ell.matvec(jnp.ones((n,), jnp.float64))
-    x0 = jnp.zeros_like(b)
-    mesh = make_mesh(NDEV)
-    r_cg = make_distributed_stack_cg(mesh, max_iter=8)(S, b, x0)
-    r_m = make_distributed_stack_cg(mesh, max_iter=8, method=method)(S, b, x0)
-    _trace_close(r_m, r_cg, rtol=RTOL[method])
-
-
-@pytest.mark.parametrize("method", ["cg1", "pipecg"])
-def test_dynwin_allgather_honors_method(method):
-    from hpccg_tpu.ops.pallas.gell_dynwin import prepare_gell_dynwin
-
-    rng = np.random.default_rng(2)
-    n = 1024 * NDEV
-    pairs = [
-        (i, int(rng.integers(0, n)), float(rng.uniform(-0.5, -0.05)))
-        for i in range(n)
-    ]
-    ell = _symmetric_ell(n, pairs)  # wide scatter: random symmetric links
-    D = prepare_gell_dynwin(ell, K=8)
-    assert D.vals4lo is not None  # f64 -> the dd dynwin kernel per shard
-    b = ell.matvec(jnp.ones((n,), jnp.float64))
-    x0 = jnp.zeros_like(b)
-    mesh = make_mesh(NDEV)
-    from hpccg_tpu.parallel.cg import make_distributed_dynwin_cg
-
-    r_cg = make_distributed_dynwin_cg(mesh, max_iter=8)(D, b, x0)
-    r_m = make_distributed_dynwin_cg(mesh, max_iter=8, method=method)(D, b, x0)
     _trace_close(r_m, r_cg, rtol=RTOL[method])
 
 

@@ -88,3 +88,19 @@ def test_native_rcm_matches_quality():
     assert sorted(perm) == list(range(n))  # a permutation
     B = permute_ell(ell, perm)
     assert bandwidth(B) <= 4 * 7  # recovered a narrow band (orig bw 7)
+
+
+def test_native_build_is_portable(monkeypatch, tmp_path):
+    """The host library is built without -march=native: a checkout (and a
+    .so built in it) may move to a machine with another CPU."""
+    import subprocess
+
+    calls = []
+    monkeypatch.setattr(native, "_SO", str(tmp_path / "lib.so"))
+    monkeypatch.setattr(
+        subprocess, "run", lambda cmd, **kw: calls.append(cmd)
+    )
+    native._compile("src.cpp")
+    assert calls and calls[0][0] == "g++"
+    assert not any("march" in part for part in calls[0])
+    assert str(tmp_path / "lib.so") in calls[0]

@@ -1,5 +1,5 @@
 """Distributed-layer tests on 8 virtual CPU devices (shard_map/ppermute/psum
-run for real — the multi-device-without-a-pod capability, SURVEY.md §4d)."""
+run for real — the multi-device-without-a-cluster capability, SURVEY.md §4d)."""
 
 import jax
 import jax.numpy as jnp
@@ -130,13 +130,10 @@ def test_distributed_single_reduction_cg():
     r0 = make_distributed_cg(cfg, mesh, max_iter=30)(prob.b, prob.x0)
     t0 = np.asarray(r0.trace)
     good = t0 > 1e-10 * t0[0]
-    for backend in ("auto", "pallas"):
-        r1 = make_distributed_cg(
-            cfg, mesh, max_iter=30, method="cg1", backend=backend
-        )(prob.b, prob.x0)
-        t1 = np.asarray(r1.trace)
-        np.testing.assert_allclose(t1[good], t0[good], rtol=1e-6)
-        assert float(compute_residual(r1.x, prob.xexact)) < 1e-10
+    r1 = make_distributed_cg(cfg, mesh, max_iter=30, method="cg1")(prob.b, prob.x0)
+    t1 = np.asarray(r1.trace)
+    np.testing.assert_allclose(t1[good], t0[good], rtol=1e-6)
+    assert float(compute_residual(r1.x, prob.xexact)) < 1e-10
 
 
 @pytest.mark.slow
@@ -154,66 +151,7 @@ def test_distributed_pipelined_cg():
     r0 = make_distributed_cg(cfg, mesh, max_iter=30)(prob.b, prob.x0)
     t0 = np.asarray(r0.trace)
     good = t0 > 1e-8 * t0[0]
-    for backend in ("auto", "pallas"):
-        r1 = make_distributed_cg(
-            cfg, mesh, max_iter=30, method="pipecg", backend=backend
-        )(prob.b, prob.x0)
-        t1 = np.asarray(r1.trace)
-        np.testing.assert_allclose(t1[good], t0[good], rtol=1e-5)
-        assert float(compute_residual(r1.x, prob.xexact)) < 1e-9
-
-
-@pytest.mark.slow
-def test_pallas_halo_overlap_variant_matches():
-    """The overlapped pallas matvec (zero-halo kernel + boundary-plane
-    corrections, ppermute schedulable concurrently) must match the
-    halo-fed-kernel variant exactly."""
-    import jax
-    import jax.numpy as jnp
-    import numpy as np
-    from functools import partial
-    from jax.sharding import PartitionSpec as P
-
-    from hpccg_tpu import ProblemConfig, Stencil
-    from hpccg_tpu.ops.pallas.stencil_v2 import pad_plane3, unpad_plane3
-    from hpccg_tpu.parallel import make_mesh
-    from hpccg_tpu.parallel.cg import local_operator
-    from hpccg_tpu.parallel.halo import (
-        stencil_matvec_halo_pallas_v2,
-        stencil_matvec_halo_pallas_v2_overlap,
-    )
-
-    for stencil in (Stencil.S27, Stencil.S7):
-        for nz_local in (1, 4):
-            cfg = ProblemConfig(6, 5, nz_local, stencil=stencil)
-            mesh = make_mesh(4)
-            op = local_operator(cfg)
-            rng = np.random.default_rng(0)
-            x = jnp.asarray(rng.standard_normal(cfg.local_nrow * 4))
-
-            def run(fn, with_pap=False):
-                def shard(v):
-                    u = pad_plane3(op, v)
-                    if with_pap:
-                        y, pap = fn(op, u, "z", True)
-                        return unpad_plane3(op, y), pap[None]
-                    return unpad_plane3(op, fn(op, u, "z"))
-
-                f = jax.jit(
-                    jax.shard_map(
-                        shard, mesh=mesh, in_specs=P("z"),
-                        out_specs=(P("z"), P("z")) if with_pap else P("z"),
-                        check_vma=False,
-                    )
-                )
-                return f(x)
-
-            want = np.asarray(run(stencil_matvec_halo_pallas_v2))
-            got = np.asarray(run(stencil_matvec_halo_pallas_v2_overlap))
-            np.testing.assert_allclose(got, want, rtol=1e-13, atol=1e-13)
-            # fused-pap variant: y and the summed partials must both match
-            y2, paps = run(stencil_matvec_halo_pallas_v2_overlap, with_pap=True)
-            np.testing.assert_allclose(np.asarray(y2), want, rtol=1e-13, atol=1e-13)
-            np.testing.assert_allclose(
-                float(np.sum(np.asarray(paps))), float(np.vdot(x, want)), rtol=1e-12
-            )
+    r1 = make_distributed_cg(cfg, mesh, max_iter=30, method="pipecg")(prob.b, prob.x0)
+    t1 = np.asarray(r1.trace)
+    np.testing.assert_allclose(t1[good], t0[good], rtol=1e-5)
+    assert float(compute_residual(r1.x, prob.xexact)) < 1e-9

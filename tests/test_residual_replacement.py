@@ -1,4 +1,4 @@
-"""Residual replacement for the one-reduction methods (round 4).
+"""Residual replacement for the one-reduction methods.
 
 cg1/pipecg carry the residual by recurrence; in f32 it decays BELOW the
 true residual's stagnation floor and eventually flushes to exact zero,

@@ -174,16 +174,19 @@ def test_resolve_backend_dispatch():
 
     sprob = generate_problem(ProblemConfig(6, 6, 6))
     eprob = generate_ell(ProblemConfig(6, 6, 6))
-    # CPU (tests): auto stays on the XLA stencil path
+    # auto takes the XLA stencil until the kernel has won on the card
     assert resolve_backend(sprob.A, "auto") == "stencil"
     # explicit names pass through for stencil operators
-    assert resolve_backend(sprob.A, "megakernel") == "megakernel"
-    # explicit matrices use their native dispatch; stencil-only names warn
+    assert resolve_backend(sprob.A, "triton") == "triton"
+    assert resolve_backend(sprob.A, "stencil") == "stencil"
+    # explicit matrices use their native matvec; the kernel name warns
     assert resolve_backend(eprob.A, "auto") == "auto"
+    assert resolve_backend(eprob.A, "stencil") == "auto"
     with pytest.warns(UserWarning, match="stencil operators only"):
-        assert resolve_backend(eprob.A, "megakernel") == "auto"
-    with pytest.raises(ValueError, match="unknown backend"):
-        resolve_backend(sprob.A, "pallass")
+        assert resolve_backend(eprob.A, "triton") == "auto"
+    for gone in ("pallas", "megakernel", "ell", "dia"):
+        with pytest.raises(ValueError, match="unknown backend"):
+            resolve_backend(sprob.A, gone)
 
 
 @pytest.mark.slow

@@ -1,4 +1,4 @@
-"""Bounded-memory distributed file loading (round-3 VERDICT #4 / missing #2).
+"""Bounded-memory distributed file loading.
 
 The reference reads only the local row block per rank
 (read_HPC_row.cpp:255-293); these tests pin the same contract for the

@@ -88,97 +88,3 @@ def test_halo_overlap_matches_nonoverlap():
                 return np.asarray(f(x))
 
             np.testing.assert_allclose(run(True), run(False), rtol=1e-14)
-
-
-@pytest.mark.quick
-def test_pod_model_predictions():
-    """The analytic pod model (round-4): monotone degradation with mesh
-    size, method ordering pipecg >= cg1 >= cg at fixed mesh, and exact
-    single-device identity."""
-    from hpccg_tpu.utils.podmodel import (
-        PodModelParams,
-        predict_iteration,
-        predict_weak_scaling,
-    )
-
-    t = 10e-6  # measured-style 10 us/iter shard
-    one = predict_iteration(t, nx=64, ny=64, itemsize=4, ndev=1)
-    assert one["weak_efficiency"] == 1.0
-
-    rows = predict_weak_scaling(t, nx=64, ny=64, itemsize=4,
-                                meshes=(4, 16, 256))
-    by = {(r["ndev"], r["method"]): r for r in rows}
-    for nd in (4, 16, 256):
-        assert (
-            by[(nd, "pipecg")]["weak_efficiency"]
-            >= by[(nd, "cg1")]["weak_efficiency"]
-            >= by[(nd, "cg")]["weak_efficiency"]
-        )
-    # cg efficiency strictly degrades with mesh size (latency-bound)
-    assert (
-        by[(4, "cg")]["weak_efficiency"]
-        > by[(16, "cg")]["weak_efficiency"]
-        > by[(256, "cg")]["weak_efficiency"]
-    )
-    # a 256-chip v5e pod stays one ICI domain (no DCN rounds)
-    assert by[(256, "cg")]["pods"] == 1
-    # beyond one pod, DCN latency bites
-    big = predict_iteration(t, nx=64, ny=64, itemsize=4, ndev=512)
-    assert big["pods"] == 2
-    assert big["t_iter_us"] > by[(256, "cg")]["t_iter_us"]
-
-
-def test_pod_model_strong_scaling():
-    """Strong predictions: compute divides by N while the comm terms do
-    not — efficiency degrades monotonically and is bounded by the weak
-    point's (the strong-scaling wall, ref strongScalingRunScript)."""
-    from hpccg_tpu.utils.podmodel import predict_strong_scaling
-
-    t1 = 2e-3  # whole-problem single-chip iteration
-    rows = predict_strong_scaling(t1, nx=64, ny=64, itemsize=4,
-                                  meshes=(4, 16, 256))
-    by = {(r["ndev"], r["method"]): r for r in rows}
-    assert all("strong_efficiency" in r and "weak_efficiency" not in r for r in rows)
-    assert (
-        by[(4, "cg")]["strong_efficiency"]
-        > by[(16, "cg")]["strong_efficiency"]
-        > by[(256, "cg")]["strong_efficiency"]
-    )
-    # per-shard compute shrank N-fold (t_compute_us rounds to 3 decimals)
-    assert abs(by[(256, "cg")]["t_compute_us"] - t1 / 256 * 1e6) < 1e-3
-    # one-reduction methods win at fixed mesh
-    for nd in (4, 16, 256):
-        assert (
-            by[(nd, "pipecg")]["strong_efficiency"]
-            >= by[(nd, "cg1")]["strong_efficiency"]
-            >= by[(nd, "cg")]["strong_efficiency"]
-        )
-
-
-@pytest.mark.quick
-def test_sweep_pod_model_emits(capsys):
-    """--pod-model appends the prediction block after the measured points."""
-    import json as _json
-
-    from hpccg_tpu.sweep import main as sweep_main
-
-    # a loaded CI box can invert the tiny slope (point reported below timer
-    # resolution -> no basis -> no block); widen the spread until it lands
-    blocks = []
-    for iters in (2, 16, 64):
-        rc = sweep_main(
-            ["weak", "--per-chip", "8", "--meshes", "1", "--iters",
-             str(iters), "--pod-model"]
-        )
-        assert rc == 0
-        out = capsys.readouterr().out
-        blocks = [
-            _json.loads(line) for line in out.splitlines() if "pod_model" in line
-        ]
-        if blocks:
-            break
-    assert len(blocks) == 1
-    pm = blocks[0]["pod_model"]
-    assert pm["basis"]["measured_point"]["mesh"] == 1
-    assert {p["method"] for p in pm["predictions"]} == {"cg", "cg1", "pipecg"}
-    assert all(0 < p["weak_efficiency"] <= 1 for p in pm["predictions"])
